@@ -1,0 +1,49 @@
+"""The port and chip_smoke.py import no JAX, flax, optax nor the JAX package."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "ssd_object_detection_tpu_torch"
+FORBIDDEN = ("jax", "flax", "optax", "orbax", "ssd_object_detection_tpu")
+SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_forbidden_imports(path):
+    bad = [m for m in _imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_port_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'flax', 'optax', 'ssd_object_detection_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "import ssd_object_detection_tpu_torch.cli.train\n"
+        "from ssd_object_detection_tpu_torch.ops.anchors import generate_anchors\n"
+        "from ssd_object_detection_tpu_torch.ops.matching import build_targets\n"
+        "a = torch.from_numpy(generate_anchors())\n"
+        "boxes = torch.tensor([[[0.5, 0.5, 0.3, 0.2]]])\n"
+        "cls, loc, mask = build_targets(torch.tensor([[3]], dtype=torch.int32), boxes,\n"
+        "                               torch.tensor([[True]]), a)\n"
+        "assert mask.sum() >= 1 and int(cls[mask][0]) == 3\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
