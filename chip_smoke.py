@@ -15,7 +15,9 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      make_train_step; every launch count is set to 0 just before and read just after,
      and each kernel must have run once per step; losses finite, params changed, and
      build_targets through the kernel equal to the plain matcher on that batch;
-  4. the Trainer through the CLI on config/synthetic.yml (warmup + 2 epochs);
+  4. the Trainer through the CLI on config/synthetic.yml (warmup + 2 epochs): the
+     kernel must have run once per micro-batch of the steps the config asks for, and
+     it must equal the plain matcher on one of the Trainer's own batches;
   5. prints the kernels line, then as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -286,10 +288,27 @@ def main() -> None:
     ])
     cli_launches = cuda_matcher.match_anchors_cuda.launches
     final_loss = float(trainer.last_metrics["loss"])
-    if not math.isfinite(final_loss) or cli_launches < 1:
-        fail(f"CLI trainer: final loss {final_loss}, matcher launches {cli_launches}")
-    print(f"CLI trainer config/synthetic.yml: warmup + {trainer.cfg.model.train.epoch} epochs, "
-          f"matcher launches {cli_launches}, final loss {final_loss:.6f}")
+    # one launch per micro-batch: warmup steps, then every full batch of every epoch
+    mc, data = trainer.cfg.model, trainer.cfg.data
+    num_images = data.mini_batch.num_data if data.mini_batch.enable else 256
+    cli_steps = (mc.warmup.step if mc.warmup.enable else 0) \
+        + mc.train.epoch * (num_images // mc.train.batch_size)
+    expected = cli_steps * trainer.step_cfg.accum_steps
+    if not math.isfinite(final_loss) or cli_launches != expected:
+        fail(f"CLI trainer: final loss {final_loss}, matcher launches {cli_launches}, "
+             f"expected {expected} ({cli_steps} steps x {trainer.step_cfg.accum_steps} micro-batches)")
+    # the kernel against the plain matcher on one of the Trainer's own batches
+    cli_batch = next(trainer.train_batches())
+    g = [torch.from_numpy(cli_batch[k]).to(dev) for k in ("gt_cls", "gt_boxes", "gt_valid")]
+    a = torch.from_numpy(trainer.anchors).to(dev)
+    got = cuda_matcher.match_anchors_cuda(*g, a, trainer.step_cfg.match_thresh)
+    want = match_anchors(*g, a, trainer.step_cfg.match_thresh)
+    for field, x, y in zip(got._fields, got, want):
+        if not torch.equal(x, y):
+            fail(f"CLI batch: kernel and plain {field} differ in {(x != y).sum().item()} entries")
+    print(f"CLI trainer config/synthetic.yml: warmup + {mc.train.epoch} epochs = {cli_steps} "
+          f"steps, matcher launches {cli_launches}, final loss {final_loss:.6f}; kernel == plain "
+          f"on a Trainer batch (B={g[0].shape[0]} G={g[0].shape[1]} D={a.shape[0]})")
 
     # ---- 5. result lines ----------------------------------------------------------
     print(json.dumps({"kernels": [{

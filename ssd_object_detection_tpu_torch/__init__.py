@@ -3,8 +3,9 @@
 `ssd_object_detection_tpu/` (JAX) stays beside this package as the reference. The
 port keeps its sub-layout and module names, so each counterpart is easy to find:
 
-  ops/        anchors (numpy copy), boxes, matching (plain greedy matcher + dispatch),
-              cuda_matcher (wrapper of the hand-written CUDA matcher in csrc/)
+  ops/        anchors (numpy copy), boxes, matching (build_targets: kernel for CUDA
+              tensors, plain matcher for CPU ones), plain_matcher (batched greedy
+              matcher), cuda_matcher (wrapper of the hand-written CUDA matcher in csrc/)
   models/     VGG-16 trunk, SSD pyramid/heads, flax -> torch parameter conversion
   losses.py   MultiBox loss, reference and canonical modes
   train/      schedules, per-tensor clip, optimizers, train step, Trainer

@@ -41,8 +41,16 @@
 // IoU, and its best is the smallest GT, so consuming that GT rescans most columns.
 // Only B CTAs run (32 on the main path, for 132 SMs). Left for later: splitting one
 // image across a thread-block cluster (distributed shared memory) to fill the card,
-// recomputing rescanned IoUs instead of storing the matrix, and keeping the column
-// cache in shared memory.
+// and keeping the column cache in shared memory.
+//
+// Why the scratch stays: a variant that drops it and recomputes each rescanned IoU
+// from the GT corners in shared memory (bit-identical values) was slower on the H100,
+// 0.24 vs 0.20-0.22 ms on the main path's synthetic batch and 3.13-3.19 vs 2.62-2.65
+// ms on a dense batch of 1,716 valid GTs (chip_smoke.py, both versions in one run;
+// PERF.md, Findings). The likely reason: a rescanned cell then costs ~13 operations
+// and an IEEE division, a multi-instruction sequence, where the stored value is one
+// coalesced load (a warp reads consecutive columns of one row), and the build's
+// stores do not stall the threads that issue them.
 //
 // Entry point: ssd_match_anchors (plain C, loaded with ctypes). It launches on the
 // caller's stream, allocates nothing, and returns cudaGetLastError() after the launch.

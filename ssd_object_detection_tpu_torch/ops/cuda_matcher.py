@@ -2,8 +2,8 @@
 
 Counterpart of ssd_object_detection_tpu/ops/pallas_matcher.py::match_anchors_pallas:
 same arguments and result, batched. For CUDA tensors `match_anchors_cuda` launches the
-kernel or raises; for CPU tensors it runs the plain matcher (ops/matching.py), which is
-also the yardstick the kernel is held to on the card. There is no other route.
+kernel or raises; for CPU tensors it runs the plain matcher (ops/plain_matcher.py),
+which is also the yardstick the kernel is held to on the card. There is no other route.
 
 The kernel is compiled at its first launch, never at import: `nvcc` builds
 csrc/matcher.cu for sm_90a (-O3 -fmad=false, no fast math) into a shared library with a
@@ -25,7 +25,7 @@ from typing import Optional
 
 import torch
 
-from ssd_object_detection_tpu_torch.ops.matching import MatchResult, match_anchors
+from ssd_object_detection_tpu_torch.ops.plain_matcher import MatchResult, match_anchors
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "matcher.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

@@ -1,83 +1,22 @@
-"""Greedy anchor <-> ground-truth matching, port of ssd_object_detection_tpu/ops/matching.py.
+"""Anchor <-> ground-truth targets, port of ssd_object_detection_tpu/ops/matching.py.
 
-`match_anchors` is the plain PyTorch matcher, batched over images:
-
-  phase 1 — `num_valid` greedy picks per image: the flat row-major first maximum of
-    the masked (G, D) IoU matrix (lowest row, then lowest column), each pick consuming
-    its row and its column (consumed cells read -2, invalid GT rows -1);
-  phase 2 — every anchor that phase 1 did not consume takes its best GT when that IoU
-    is strictly greater than `thresh` (lowest row wins ties).
-
-It is the CPU route and the yardstick that the CUDA kernel (ops/cuda_matcher.py,
-csrc/matcher.cu) is held to on the card. `build_targets` dispatches through the
-kernel's wrapper, which launches the kernel for CUDA tensors and runs this plain
-matcher for CPU tensors; there is no third route.
+`match_anchors` and `MatchResult` (the plain matcher, ops/plain_matcher.py) are
+re-exported here, where the JAX package keeps them. `build_targets` matches and
+encodes: CUDA tensors go to the hand-written kernel (ops/cuda_matcher.py), all others
+(the CPU) to the plain matcher. There is no fallback from the kernel to the plain one.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from ssd_object_detection_tpu_torch.ops import boxes as box_ops
+from ssd_object_detection_tpu_torch.ops.cuda_matcher import match_anchors_cuda
+from ssd_object_detection_tpu_torch.ops.plain_matcher import MatchResult, match_anchors
 
-
-class MatchResult(NamedTuple):
-    """Per-anchor targets, batched: (B, D) / (B, D, 4)."""
-
-    cls: torch.Tensor  # (B, D) int32, class id of matched GT, 0 where unmatched
-    box: torch.Tensor  # (B, D, 4) float32, matched GT cxcywh, 0 where unmatched
-    mask: torch.Tensor  # (B, D) bool, True where the anchor is matched (positive)
-    gt_index: torch.Tensor  # (B, D) int32, index of matched GT, -1 where unmatched
-
-
-def match_anchors(
-    gt_cls: torch.Tensor,  # (B, G) int32
-    gt_boxes: torch.Tensor,  # (B, G, 4) cxcywh
-    gt_valid: torch.Tensor,  # (B, G) bool
-    anchors: torch.Tensor,  # (D, 4) cxcywh
-    thresh: float = 0.5,
-) -> MatchResult:
-    """Batched plain matcher; bit-equal to vmap(JAX match_anchors) on every image."""
-    batch, max_gt = gt_cls.shape
-    num_anchors = anchors.shape[0]
-    device = gt_boxes.device
-
-    iou = box_ops.pairwise_iou(gt_boxes, anchors, legacy_clamp=True)  # (B, G, D)
-    iou = torch.where(gt_valid[:, :, None], iou, torch.full_like(iou, -1.0))
-    num_valid = gt_valid.sum(dim=1)  # (B,)
-
-    # Phase 1: one step per valid GT; an image whose GTs are all placed sits out the
-    # remaining steps. The IoU matrix stays read-only; removal lives in masks.
-    row_removed = torch.zeros((batch, max_gt), dtype=torch.bool, device=device)
-    col_removed = torch.zeros((batch, num_anchors), dtype=torch.bool, device=device)
-    anchor_gt = torch.full((batch, num_anchors), -1, dtype=torch.int32, device=device)
-    images = torch.arange(batch, device=device)
-    minus_two = torch.tensor(-2.0, dtype=iou.dtype, device=device)
-    for t in range(int(num_valid.max()) if batch else 0):
-        active = num_valid > t
-        masked = torch.where(row_removed[:, :, None] | col_removed[:, None, :], minus_two, iou)
-        flat = torch.argmax(masked.reshape(batch, -1), dim=1)  # first maximum: lowest (row, col)
-        row = torch.div(flat, num_anchors, rounding_mode="floor")
-        col = flat - row * num_anchors
-        row_removed[images, row] |= active
-        col_removed[images, col] |= active
-        anchor_gt[images, col] = torch.where(active, row.to(torch.int32), anchor_gt[images, col])
-
-    # Phase 2: per-anchor best GT with IoU strictly > thresh, on columns phase 1 left.
-    col_best = iou.amax(dim=1)
-    col_row = torch.argmax(iou, dim=1).to(torch.int32)  # first maximum: lowest row
-    thresh_t = torch.tensor(thresh, dtype=iou.dtype, device=device)
-    hit = (anchor_gt < 0) & (col_best > thresh_t) & ~col_removed
-    anchor_gt = torch.where(hit, col_row, anchor_gt)
-
-    mask = anchor_gt >= 0
-    safe_idx = torch.clamp(anchor_gt, min=0).long()
-    matched_cls = torch.where(mask, torch.gather(gt_cls, 1, safe_idx).to(torch.int32), 0)
-    matched_box = torch.gather(gt_boxes, 1, safe_idx[:, :, None].expand(-1, -1, 4))
-    matched_box = torch.where(mask[:, :, None], matched_box, torch.zeros_like(matched_box))
-    return MatchResult(cls=matched_cls, box=matched_box, mask=mask, gt_index=anchor_gt)
+__all__ = ["MatchResult", "build_targets", "match_anchors"]
 
 
 def build_targets(
@@ -90,13 +29,10 @@ def build_targets(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Batched match + encode: (cls (B, D) int32, loc (B, D, 4), mask (B, D) bool).
 
-    The match goes through the CUDA matcher's wrapper: the kernel for CUDA tensors,
-    the plain matcher above for CPU tensors. As in the JAX package, the encoder runs
-    over ALL anchors, unmatched ones included (their target box is 0); the loss
-    masks them.
+    As in the JAX package, the encoder runs over ALL anchors, unmatched ones included
+    (their target box is 0); the loss masks them.
     """
-    from ssd_object_detection_tpu_torch.ops.cuda_matcher import match_anchors_cuda
-
-    matched = match_anchors_cuda(gt_cls, gt_boxes, gt_valid, anchors, thresh)
+    matcher = match_anchors_cuda if gt_boxes.is_cuda else match_anchors
+    matched = matcher(gt_cls, gt_boxes, gt_valid, anchors, thresh)
     loc = box_ops.encode_boxes(matched.box, anchors[None], variances=variances)
     return matched.cls, loc, matched.mask
