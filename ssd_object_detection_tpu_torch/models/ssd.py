@@ -3,7 +3,7 @@
 VGG-16 trunk -> 2x2 SAME max-pool -> extra conv pyramid -> per-tap loc/conf heads.
 Public layout is the JAX package's: input (B, S, S, 3) NHWC in [-1, 1]; output loc
 (B, D, 4) float32 and conf logits (B, D, C), background LAST. Inside, tensors are NCHW
-(the NHWC input permuted is already a channels-last view, which cuDNN takes as is).
+with channels-last memory, which cuDNN takes as is.
 
 Numerics carried over from flax:
   - `SAME` puts the odd padding after: extra1_conv0 (38->19) and extra3_conv1 (10->5)
@@ -142,7 +142,10 @@ class SSD(nn.Module):
         return self
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = images.permute(0, 3, 1, 2).to(self.dtype)  # NHWC -> NCHW (channels-last view)
+        # NHWC -> NCHW kept channels-last in memory whatever the caller's strides (a
+        # planar canvas resize hands over an NCHW-strided view): cuDNN's NHWC kernels
+        # then run without layout transposes, and the cast is the one copy either way
+        x = images.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
         x = self.vgg(x)
         x = F.max_pool2d(x, 2, 2, ceil_mode=True)  # flax SAME: the odd edge pools alone
 

@@ -1,5 +1,5 @@
-"""Geometry: box math, anchor generation and greedy anchor matching.
+"""Geometry, matching, NMS, preprocessing and the fused conv op.
 
 Importing this package builds no kernel and imports neither nvcc's output nor triton;
-the CUDA matcher is compiled at its first launch (ops/cuda_matcher.py).
+each CUDA kernel is compiled at its first launch (ops/_cuda_build.py).
 """

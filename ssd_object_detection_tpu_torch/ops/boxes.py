@@ -19,6 +19,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from ssd_object_detection_tpu_torch.utils.device import true_divide
+
 _EPS = 1e-10
 
 
@@ -74,8 +76,8 @@ def encode_boxes(
     xy = (gt_boxes[..., :2] - anchors[..., :2]) / anchors[..., 2:]
     wh = torch.log(torch.clamp(gt_boxes[..., 2:], min=1e-5) / torch.clamp(anchors[..., 2:], min=1e-5))
     if variances is not None:
-        xy = xy / variances[0]
-        wh = wh / variances[1]
+        xy = true_divide(xy, variances[0])
+        wh = true_divide(wh, variances[1])
     return torch.cat([xy, wh], dim=-1)
 
 

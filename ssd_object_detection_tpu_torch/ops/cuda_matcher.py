@@ -5,7 +5,7 @@ same arguments and result, batched. For CUDA tensors `match_anchors_cuda` launch
 kernel or raises; for CPU tensors it runs the plain matcher (ops/plain_matcher.py),
 which is also the yardstick the kernel is held to on the card. There is no other route.
 
-The kernel is compiled at its first launch, never at import: `nvcc` builds
+The kernel is compiled at its first launch, never at import: ops/_cuda_build.py builds
 csrc/matcher.cu for sm_90a (-O3 -fmad=false, no fast math) into a shared library with a
 plain C entry point under `build/kernels/` at the checkout root, named by a hash of the
 source and the flags, and ctypes loads it. `match_anchors_cuda.launches` counts kernel
@@ -15,78 +15,33 @@ launches (CPU calls do not count).
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
-from typing import Optional
 
 import torch
 
+from ssd_object_detection_tpu_torch.ops import _cuda_build
 from ssd_object_detection_tpu_torch.ops.plain_matcher import MatchResult, match_anchors
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "matcher.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = _cuda_build.CSRC / "matcher.cu"
+NVCC_FLAGS = _cuda_build.BASE_FLAGS + ("-fmad=false",)
 # A CTA's shared memory on Hopper (232,448 bytes) less the kernel's static buffers.
 _MAX_DYNAMIC_SMEM = 232_448 - 1_024
 
-_lib: Optional[ctypes.CDLL] = None
 
-
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    candidate = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin): cannot build csrc/matcher.cu")
-
-
-def build() -> Path:
+def build():
     """Compile csrc/matcher.cu unless the library for this source already exists."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    target = BUILD_DIR / f"libssd_matcher_{digest}.so"
-    if target.exists():
-        return target
-    target.parent.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: concurrent builders never see half a file
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=target.parent)
-    os.close(fd)
-    try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
-            capture_output=True, text=True, check=False,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, target)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return target
+    return _cuda_build.build(SOURCE, NVCC_FLAGS)
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "ssd_match_anchors": ([_P, _P, _P, _P, _I, _I, _I, ctypes.c_float,
+                           _P, _P, _P, _P, _P, _P, _P, _I, _P], _I),
+    "ssd_match_anchors_smem_bytes": ([_I, _I], ctypes.c_size_t),
+}
 
 
 def _library() -> ctypes.CDLL:
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.ssd_match_anchors.argtypes = [p, p, p, p, i, i, i, ctypes.c_float,
-                                          p, p, p, p, p, p, p, i, p]
-        lib.ssd_match_anchors.restype = i
-        lib.ssd_match_anchors_smem_bytes.argtypes = [i, i]
-        lib.ssd_match_anchors_smem_bytes.restype = ctypes.c_size_t
-        lib.ssd_cuda_error_string.argtypes = [i]
-        lib.ssd_cuda_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+    return _cuda_build.load(SOURCE, NVCC_FLAGS, _SIGNATURES)
 
 
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype, shape, device: torch.device,
@@ -157,10 +112,7 @@ def match_anchors_cuda(
         device.index if device.index is not None else torch.cuda.current_device(),
         torch.cuda.current_stream(device).cuda_stream,
     )
-    if err != 0:
-        raise RuntimeError(
-            f"matcher kernel launch failed: {lib.ssd_cuda_error_string(err).decode()} ({err})"
-        )
+    _cuda_build.check_launch(lib, err, "matcher kernel launch")
     match_anchors_cuda.launches += 1
     return MatchResult(cls=cls, box=box, mask=mask, gt_index=gt_index)
 

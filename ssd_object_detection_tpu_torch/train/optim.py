@@ -50,7 +50,8 @@ def clip_by_norm_per_tensor(grads: Iterable[torch.Tensor], max_norm: float = 0.0
     """tf.clip_by_norm on each tensor, in place: g * max_norm / max(||g||_2, max_norm)."""
     for g in grads:
         norm = g.float().square().sum().sqrt()
-        g.mul_(max_norm / torch.clamp(norm, min=max_norm))
+        # a tensor numerator: `float / tensor` is a multiply by the reciprocal (two roundings)
+        g.mul_(torch.full_like(norm, max_norm) / torch.clamp(norm, min=max_norm))
 
 
 def make_optimizer(

@@ -18,6 +18,7 @@ from torch import nn
 from ssd_object_detection_tpu_torch.losses import LossInfo, multibox_loss
 from ssd_object_detection_tpu_torch.ops.matching import build_targets
 from ssd_object_detection_tpu_torch.train.optim import Schedule, clip_by_norm_per_tensor
+from ssd_object_detection_tpu_torch.utils.device import true_divide
 
 BATCH_KEYS = ("image", "gt_cls", "gt_boxes", "gt_valid")
 
@@ -64,7 +65,7 @@ def make_train_step(anchors: np.ndarray, cfg: StepConfig = StepConfig()) -> Call
 
     def loss_for_micro(model, anchors_t, image, gt_cls, gt_boxes, gt_valid) -> LossInfo:
         if image.dtype == torch.uint8:
-            image = image.float() / 255.0
+            image = true_divide(image.float(), 255.0)
         image = (image - 0.5) * 2.0
         with torch.no_grad():
             t_cls, t_loc, t_mask = build_targets(

@@ -42,6 +42,18 @@ def test_port_runs_with_jax_blocked():
         "cls, loc, mask = build_targets(torch.tensor([[3]], dtype=torch.int32), boxes,\n"
         "                               torch.tensor([[True]]), a)\n"
         "assert mask.sum() >= 1 and int(cls[mask][0]) == 3\n"
+        "import ssd_object_detection_tpu_torch.cli.eval_synthetic\n"
+        "import ssd_object_detection_tpu_torch.eval.runner\n"
+        "from ssd_object_detection_tpu_torch.eval.predict import detect_from_logits\n"
+        "from ssd_object_detection_tpu_torch.ops.conv3x3 import conv3x3_bias_relu\n"
+        "y = conv3x3_bias_relu(torch.ones(1, 4, 4, 2), torch.ones(3, 3, 2, 3), torch.zeros(3),\n"
+        "                      True, True)\n"
+        "assert tuple(y.shape) == (1, 2, 2, 3) and float(y.max()) == 18.0\n"
+        "logits = torch.zeros(1, a.shape[0], 3)\n"
+        "logits[..., -1] = 9.0\n"
+        "logits[0, 7, 1] = 20.0\n"
+        "det = detect_from_logits(torch.zeros(1, a.shape[0], 4), logits, a)\n"
+        "assert int(det.valid.sum()) == 1 and int(det.classes[0, 0]) == 1\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,

@@ -153,7 +153,8 @@ def test_matcher_imports_without_nvcc_or_triton():
         "import sys; sys.modules['triton'] = None\n"
         "import ssd_object_detection_tpu_torch.ops.cuda_matcher as m\n"
         "import ssd_object_detection_tpu_torch.ops.matching\n"
-        "assert m._lib is None and m.match_anchors_cuda.launches == 0\n"
+        "from ssd_object_detection_tpu_torch.ops import _cuda_build\n"
+        "assert not _cuda_build._loaded and m.match_anchors_cuda.launches == 0\n"
     )
     env = dict(os.environ, PATH="/nonexistent", CUDA_HOME="/nonexistent")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
