@@ -20,11 +20,16 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      matcher must have run once per micro-batch of the steps the config asks for, and
      it must equal the plain matcher on one of the Trainer's own batches;
   5. the fused conv3x3 op's own path (no model calls it, as in the JAX package):
-     conv3x3_bias_relu at the three VGG trunk shapes it fuses (batch 32, bf16) and a
+     conv3x3_bias_relu at the three VGG trunk shapes it fuses (batch 32, bf16, the
+     wgmma kernel), at the seams of that kernel's tiles (ragged rows and columns, tile
+     pixels rounded up, IC and OC off the chunk and the N-block, ping-pong tiles with
+     more chunks than ring stages, batch 3, IC = 3), and a
      small float32 case in all four relu/pool combinations, launch count equal to the
      forward calls; each output against the plain version (float32 1e-5 of the output
      scale, bf16 one ulp beyond that), one backward against autograd of the plain
-     version; kernel, plain and cuDNN (F.conv2d + relu + max_pool2d) times and bound;
+     version; per trunk shape the tile plan, kernel, plain and cuDNN (F.conv2d + relu +
+     max_pool2d) times, TFLOP/s, share of the bound, host time of the wrapper and of one
+     tensor-map encode;
   6. NMS on the card against the CPU on random and tie-heavy pools (B=32, N=400, 80
      classes): nms_on_pool, nms_on_pool_merged and its per_anchor_top2 variant give
      bit-equal valid, classes, scores and boxes;
@@ -66,11 +71,45 @@ CONV_REPLACES = "ssd_object_detection_tpu/ops/pallas_conv.py:134"
 # (layer, H = W, IC = OC, pool): the VGG trunk convolutions the fused op stands for.
 CONV_SHAPES = (("block1_conv2", 300, 64, True), ("block2_conv2", 150, 128, True),
                ("block3_conv2", 75, 256, False))
+# (name, B, H, W, IC, OC, relu, pool): the seams of the bf16 kernel's tiles
+# (ops/cuda_conv.py::plan_conv: pitch 32 x 8 rows with the pool, else full rows where
+# that gives fewer tiles; 16-channel chunks; N-blocks of 64; ping-pong tiles).
+CONV_EDGES = (
+    ("rows_cols_ragged_pool", 2, 18, 64, 16, 64, True, True),
+    ("rows_ragged_full_row", 2, 19, 65, 16, 64, True, False),
+    ("cols_ragged_pitch32", 1, 10, 290, 16, 16, False, False),
+    ("m_rounded_up", 1, 9, 40, 16, 64, True, False),
+    ("ic40", 2, 20, 24, 40, 64, True, True),
+    ("ic72", 2, 20, 24, 72, 128, True, False),
+    ("ic40_oc72", 2, 34, 18, 40, 72, True, False),
+    ("oc72", 2, 16, 30, 64, 72, True, True),
+    ("oc200", 2, 16, 30, 64, 200, True, False),
+    ("batch3", 3, 17, 33, 32, 64, False, False),
+    ("odd_channels", 1, 7, 9, 3, 5, False, False),
+    ("ic512_streamed64", 1, 10, 20, 512, 64, True, False),  # one tile of 32 chunks
+    ("ic512_pingpong", 8, 64, 64, 512, 128, True, False),  # 352 tiles of 32 chunks, 5 stages
+)
 
 
 def fail(message: str) -> None:
     print(f"chip_smoke: FAIL: {message}", file=sys.stderr)
     sys.exit(1)
+
+
+def stream_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
+    """Mean time of one call of `fn` over `iters` calls enqueued back to back, from CUDA
+    events: the card's time per call, with the host's enqueue hidden behind it."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
 
 
 def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
@@ -443,6 +482,8 @@ def conv_phase(torch, np, dev) -> dict:
 
     cases = [(name, inputs(32, hw, hw, c, c, torch.bfloat16), True, pool)
              for name, hw, c, pool in CONV_SHAPES]
+    cases += [(name, inputs(b, h, w, ic, oc, torch.bfloat16), relu, pool)
+              for name, b, h, w, ic, oc, relu, pool in CONV_EDGES]
     cases += [(f"small_f32_relu{int(relu)}_pool{int(pool)}",
                inputs(2, 12, 20, 8, 16, torch.float32), relu, pool)
               for relu in (False, True) for pool in (False, True)]
@@ -486,8 +527,19 @@ def conv_phase(torch, np, dev) -> dict:
     for name, hw, c, pool in CONV_SHAPES:
         x, k, b = inputs(32, hw, hw, c, c, torch.bfloat16)
         out = cuda_conv.conv3x3_forward_cuda(x, k, b, True, pool)
-        kernel_ms = cuda_ms(torch, lambda: cuda_conv.conv3x3_forward_cuda(x, k, b, True, pool),
-                            warmup=3, iters=20)
+        def kernel():
+            return cuda_conv.conv3x3_forward_cuda(x, k, b, True, pool)
+
+        kernel_ms = cuda_ms(torch, kernel, warmup=3, iters=20)
+        back_to_back_ms = stream_ms(torch, kernel)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(20):  # enqueue only: the wrapper's host time per call
+            kernel()
+        host_us = (time.perf_counter() - t) / 20 * 1e6
+        torch.cuda.synchronize()
+        plan = cuda_conv.plan_conv(hw, hw, pool)
+        encode_us = cuda_conv.tensor_map_encode_us(x, plan)
         plain_ms = cuda_ms(torch, lambda: conv3x3_plain(x, k, b, True, pool), warmup=2, iters=5)
         x_nchw = x.permute(0, 3, 1, 2)  # a channels-last view, which cuDNN takes as is
         w_lib = k.to(torch.bfloat16).permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
@@ -499,15 +551,28 @@ def conv_phase(torch, np, dev) -> dict:
 
         library_ms = cuda_ms(torch, library, warmup=3, iters=20)
         bound_ms, bound_by = conv_bound(x, out, c)
-        rows.append((name, kernel_ms, plain_ms, library_ms, bound_ms, bound_by))
+        flop = 2 * 32 * hw * hw * 9 * c * c
+        tflops = flop / (kernel_ms * 1e-3) / 1e12
+        tflops_back_to_back = flop / (back_to_back_ms * 1e-3) / 1e12
+        tiles_h, tiles_w = plan.grid(hw, hw)
+        rows.append({"shape": name, "ms": kernel_ms, "back_to_back_ms": back_to_back_ms,
+                     "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "tflops": tflops})
         print(f"conv timing {name} (32x{hw}x{hw}x{c}->{c}, bf16, relu, pool={pool}): kernel "
-              f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, cuDNN conv+relu"
+              f"{kernel_ms:.4f} ms per call ({back_to_back_ms:.4f} ms back to back), plain "
+              f"{plain_ms:.4f} ms, cuDNN conv+relu"
               f"{'+pool' if pool else ''} {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        print(f"conv tile {name}: pitch {plan.pitch} x {plan.rows} rows "
+              f"({plan.cols} columns), {tiles_h}x{tiles_w} tiles per image per N-block, "
+              f"{plan.stages} ring stages, "
+              f"{plan.smem_bytes} B shared memory; {tflops:.1f} TFLOP/s per call "
+              f"({tflops_back_to_back:.1f} back to back), {100 * bound_ms / kernel_ms:.1f} % of "
+              f"the bound; host per call {host_us:.1f} us, of it one tensor-map encode "
+              f"{encode_us:.2f} us")
         del x, k, b, out, x_nchw, w_lib
-    name, kernel_ms, plain_ms, library_ms, bound_ms, bound_by = rows[0]
-    return {"launches": launches, "max_abs_err": max_abs_err, "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    first = {key: rows[0][key] for key in keys}
+    return {"launches": launches, "max_abs_err": max_abs_err, **first, "shapes": rows}
 
 
 def nms_phase(torch, np, nms, dev) -> None:

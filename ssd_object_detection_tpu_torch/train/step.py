@@ -101,10 +101,11 @@ def make_train_step(anchors: np.ndarray, cfg: StepConfig = StepConfig()) -> Call
                 for acc, g in zip(sum_grads, grads):
                     acc.add_(g)
                 sum_info = LossInfo(*(a + b for a, b in zip(sum_info, info)))
-        if cfg.accum_steps > 1:
+        if cfg.accum_steps > 1:  # a divisor tensor: the card divides as JAX does (true_divide)
+            divisor = torch.full((), cfg.accum_steps, dtype=sum_grads[0].dtype, device=device)
             for g in sum_grads:
-                g.div_(cfg.accum_steps)
-            sum_info = LossInfo(*(x / cfg.accum_steps for x in sum_info))
+                g.div_(divisor)
+            sum_info = LossInfo(*(true_divide(x, cfg.accum_steps) for x in sum_info))
 
         for p, g in zip(params, sum_grads):
             p.grad = g

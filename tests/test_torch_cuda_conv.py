@@ -47,9 +47,9 @@ def assert_close_to_plain(got: torch.Tensor, want: torch.Tensor) -> None:
 
 
 SHAPES = {
-    "tile_remainders": (2, 12, 20, 8, 16),  # H, W not multiples of the 16x16 tile
+    "tile_remainders": (2, 12, 20, 8, 16),  # H, W not multiples of the float32 16x16 tile
     "channel_remainders": (2, 34, 18, 40, 72),  # IC, OC not multiples of 32 / 64
-    "odd_channels": (1, 7, 9, 3, 5),  # scalar loads (IC, OC not multiples of 8)
+    "odd_channels": (1, 7, 9, 3, 5),  # IC, OC not multiples of 8: padded x, masked stores
 }
 
 
@@ -69,6 +69,55 @@ def test_kernel_matches_plain(cuda_device, shape, relu, pool, dtype):
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == dtype and got.is_contiguous()
     assert_close_to_plain(got, want)
+
+
+# (B, H, W, IC, OC, relu, pool): the seams of the bf16 wgmma kernel's tiles
+# (ops/cuda_conv.py::plan_conv), each against the plain version.
+EDGES = {
+    "rows_cols_ragged_pool": (2, 18, 64, 16, 64, True, True),  # H % 8, W % 30 != 0
+    "rows_ragged_full_row": (2, 19, 65, 16, 64, True, False),  # pitch 67 x 3 rows, H % 3
+    "cols_ragged_pitch32": (1, 10, 290, 16, 16, False, False),  # W % 30 != 0
+    "m_rounded_up": (1, 9, 40, 16, 64, True, False),  # 6 x 42 = 252 tile pixels of 256
+    "ic40": (2, 20, 24, 40, 64, True, True),  # off the 16-channel chunk
+    "ic72": (2, 20, 24, 72, 128, True, False),
+    "oc72": (2, 16, 30, 64, 72, True, True),  # off the 64-channel N-block
+    "oc200": (2, 16, 30, 64, 200, True, False),
+    "batch3": (3, 17, 33, 32, 64, False, False),  # no tile may cross images
+    "block1_b1": (1, 300, 300, 64, 64, True, True),
+    "block2_b1": (1, 150, 150, 128, 128, True, True),
+    "block3_b1": (1, 75, 75, 256, 256, True, False),
+    "ic512_streamed64": (1, 10, 20, 512, 64, True, False),  # one tile of 32 chunks
+    # 352 tiles of 32 chunks through a 5-stage ring, two or three per CTA: the consumer
+    # warpgroups' turns keep each ring wait on the right phase
+    "ic512_pingpong": (8, 64, 64, 512, 128, True, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("edge", list(EDGES))
+def test_bf16_kernel_edges_match_plain(cuda_device, edge):
+    b, h, w, ic, oc, relu, pool = EDGES[edge]
+    x, k, bias = _inputs(cuda_device, b, h, w, ic, oc, torch.bfloat16, seed=2)
+    before = cuda_conv.conv3x3_forward_cuda.launches
+    got = conv3x3_bias_relu(x, k, bias, relu, pool)
+    assert cuda_conv.conv3x3_forward_cuda.launches == before + 1
+    want = conv3x3_plain(x, k, bias, relu, pool)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert_close_to_plain(got, want)
+
+
+@pytest.mark.cuda
+def test_bf16_kernel_takes_a_misaligned_base(cuda_device):
+    """x at an odd bf16 offset: the wrapper copies it to an aligned base (the tensor
+    map needs one); the result equals that of the aligned tensor."""
+    x, k, bias = _inputs(cuda_device, 1, 8, 12, 16, 32, torch.bfloat16, seed=3)
+    flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    assert shifted.data_ptr() % 16 != 0
+    torch.testing.assert_close(conv3x3_bias_relu(shifted, k, bias, True, False),
+                               conv3x3_bias_relu(x, k, bias, True, False), rtol=0, atol=0)
 
 
 @pytest.mark.cuda

@@ -113,13 +113,15 @@ def _port_step(port, batch, accum_steps):
     return metrics, {name: p.grad.clone() for name, p in port.named_parameters()}
 
 
-@pytest.mark.parametrize("accum_steps", [1, 2])
+@pytest.mark.parametrize("accum_steps", [1, 2, 3])
 def test_train_step_loss_and_clipped_grads_match_jax(accum_steps):
     """One step from identical params and batch. Gradients are compared before the
-    optimizer: Adam's first step is sign-like, so ulp noise would flip params."""
+    optimizer: Adam's first step is sign-like, so ulp noise would flip params.
+    accum_steps 3 divides by a divisor whose reciprocal is inexact."""
     jax_model, params, port = _tiny_setup()
-    ds = SyntheticDetectionDataset(num_images=4, image_size=64, max_gt=4, num_classes=8, seed=5)
-    batch = next(ds.batches(batch_size=4))
+    n = 6 if accum_steps == 3 else 4
+    ds = SyntheticDetectionDataset(num_images=n, image_size=64, max_gt=4, num_classes=8, seed=5)
+    batch = next(ds.batches(batch_size=n))
     tx = _capture_grads()
     jax_step = jax_make_train_step(jax_model.apply, generate_anchors(TINY_ANCHORS), tx,
                                    JaxStepConfig(accum_steps=accum_steps))
