@@ -9,8 +9,13 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
   2. holds the matcher kernel against its plain PyTorch version on the card at the main
      path's shapes (SSD300 anchors D=8,732, B=32, G=100; all-valid, ~10 %-valid,
      zero-valid, duplicated-GT images, the reference's golden bipartite case, a
-     synthetic batch, and SSD512's 24,564 anchors): gt_index, cls and mask bit-equal,
-     box exactly equal; times both with CUDA events;
+     synthetic batch, and SSD512's 24,564 anchors) and on the cases that strain its
+     design (identical GTs, more GTs than anchors, empty and ragged column slices,
+     B = 1 and B = 160, G = 1, a thresh below -1, SSD512's anchors at B = 32): gt_index,
+     cls and mask bit-equal, box exactly equal; for the train path's batch, a dense
+     batch and SSD512's anchors it prints the launch plan, the time per call, back to
+     back and of the wrapper on the host, the rescans the plain model of the algorithm
+     counts, and the time of an empty kernel of the same grid and cluster shape;
   3. the train path: SSD300-VGG16 train steps at full width (81 classes, bf16 compute,
      batch 32, max_gt 100, uint8 synthetic images, reference loss) through
      make_train_step; every launch count is set to 0 just before and read just after,
@@ -127,6 +132,41 @@ def cuda_ms(torch, fn, warmup: int = 3, iters: int = 20) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def graph_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
+    """The card's time per call with no host time of the wrapper in it: `calls` calls of
+    `fn` captured into one CUDA graph, the median over `replays` replays."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def enqueue_us(torch, fn, iters: int = 50) -> float:
+    """Host microseconds per call of `fn` when calls are only enqueued: the wrapper's
+    own time (checks, allocations, the launch), the card's work hidden behind it."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def matcher_cases(np, anchors300, anchors512):
@@ -321,37 +361,9 @@ def main() -> None:
     for path, seconds in builds:
         print(f"built {path.name} in {seconds:.1f} s")
 
-    # ---- 2. kernel vs plain version on the card ---------------------------------
     anchors300 = generate_anchors()
     anchors512 = generate_anchors(SSD512_SPEC)
-    max_abs_err = 0.0
-    main_case = None
-    for name, case in matcher_cases(np, anchors300, anchors512):
-        args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in case]
-        got = cuda_matcher.match_anchors_cuda(*args)
-        want = match_anchors(*args)
-        torch.cuda.synchronize()
-        for field, g, w in zip(got._fields, got, want):
-            if not torch.equal(g, w):
-                diff = (g != w).sum().item()
-                fail(f"matcher case {name}: kernel and plain {field} differ in {diff} entries")
-        max_abs_err = max(max_abs_err, (got.box - want.box).abs().max().item())
-        print(f"matcher {name}: B={args[0].shape[0]} G={args[0].shape[1]} D={args[3].shape[0]} "
-              f"valid={int(case[2].sum())} positives={int(got.mask.sum())}: bit-equal")
-        if name == "synthetic_b32":
-            main_case = (args, case[2])
-        elif name == "random_seed0":
-            dense = args
-    args, valid_np = main_case
-    kernel_ms = cuda_ms(torch, lambda: cuda_matcher.match_anchors_cuda(*args), warmup=5, iters=50)
-    plain_ms = cuda_ms(torch, lambda: match_anchors(*args), warmup=2, iters=10)
-    bound_ms, bound_by = matcher_bound(np, valid_np, anchors300.shape[0])
-    print(f"matcher timing (synthetic B=32 G=100 D=8732, {int(valid_np.sum())} valid GTs, "
-          f"max {int(valid_np.sum(1).max())} per image): kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
-    dense_ms = cuda_ms(torch, lambda: cuda_matcher.match_anchors_cuda(*dense), warmup=5, iters=20)
-    print(f"matcher timing, dense case random_seed0 ({int(dense[2].sum())} valid of 3200): "
-          f"kernel {dense_ms:.4f} ms")
+    matcher = matcher_phase(torch, np, dev, anchors300, anchors512)
 
     # ---- 3. the main path: full-width SSD300 train steps --------------------------
     batch_size, warmup_steps, timed_steps = 32, 2, 5
@@ -450,11 +462,7 @@ def main() -> None:
         "source": MATCHER_SOURCE,
         "replaces": MATCHER_REPLACES,
         "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        **matcher,
         "library_ms": None,
     }, {
         "name": "conv3x3_bias_relu_pool",
@@ -464,6 +472,84 @@ def main() -> None:
         **conv,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+
+
+def matcher_phase(torch, np, dev, anchors300, anchors512) -> dict:
+    """2. The matcher kernel against its plain version on the card, and its times."""
+    from ssd_object_detection_tpu_torch.ops import cuda_matcher
+    from ssd_object_detection_tpu_torch.ops.matcher_model import match_anchors_model, stress_cases
+    from ssd_object_detection_tpu_torch.ops.plain_matcher import match_anchors
+
+    cases = [(name, case, 0.5) for name, case in matcher_cases(np, anchors300, anchors512)]
+    cases += [(f"stress_{name}", case[:4], case[4])
+              for name, case in stress_cases(anchors300, anchors512).items()]
+    max_abs_err = 0.0
+    timed = {}
+    for name, case, thresh in cases:
+        args = [torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in case]
+        got = cuda_matcher.match_anchors_cuda(*args, thresh)
+        want = match_anchors(*args, thresh)
+        torch.cuda.synchronize()
+        for field, g, w in zip(got._fields, got, want):
+            if not torch.equal(g, w):
+                diff = (g != w).sum().item()
+                fail(f"matcher case {name}: kernel and plain {field} differ in {diff} entries")
+        max_abs_err = max(max_abs_err, (got.box - want.box).abs().max().item())
+        print(f"matcher {name}: B={args[0].shape[0]} G={args[0].shape[1]} D={args[3].shape[0]} "
+              f"thresh={thresh} valid={int(case[2].sum())} positives={int(got.mask.sum())}: "
+              f"bit-equal")
+        # timed: the train path's batch, a dense batch, SSD512's anchors, and the batch
+        # whose every pick is a conflict (its time over its rescans is a rescan's cost)
+        if name in ("synthetic_b32", "random_seed0", "ssd512_anchors", "stress_identical_gts"):
+            timed[name] = (args, case[2])
+        del got, want
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    result = {}
+    for name, (args, valid_np) in timed.items():
+        batch, max_gt = valid_np.shape
+        num_anchors = args[3].shape[0]
+        launch = cuda_matcher.plan(batch, max_gt, num_anchors, sms)
+
+        def kernel():
+            return cuda_matcher.match_anchors_cuda(*args)
+
+        kernel_ms = cuda_ms(torch, kernel, warmup=5, iters=50)
+        back_to_back_ms = stream_ms(torch, kernel, warmup=5, iters=50)
+        device_ms = graph_ms(torch, kernel)
+        host_us = enqueue_us(torch, kernel)
+
+        def empty():
+            cuda_matcher.empty_launch(launch, dev)
+
+        floor_ms, floor_call_ms = graph_ms(torch, empty), cuda_ms(torch, empty, warmup=5, iters=50)
+        # the algorithm's plain model on the CPU: its result once more, and its rescans
+        model, rescans = match_anchors_model(*(a.cpu() for a in args), cluster=launch.cluster)
+        if not torch.equal(model.gt_index, kernel().gt_index.cpu()):
+            fail(f"matcher case {name}: the kernel and the plain model of its algorithm differ")
+        bound_ms, bound_by = matcher_bound(np, valid_np, num_anchors)
+        at_once = cuda_matcher.max_active_clusters(launch, dev)
+        if at_once < 1:
+            fail(f"matcher case {name}: the card cannot schedule a cluster of {launch}")
+        print(f"matcher timing {name} (B={batch} G={max_gt} D={num_anchors}, "
+              f"{int(valid_np.sum())} valid GTs, max {int(valid_np.sum(1).max())} per image): "
+              f"kernel {kernel_ms:.4f} ms per call, {back_to_back_ms:.4f} ms back to back, "
+              f"{device_ms:.4f} ms replayed from a CUDA graph (no host time), host "
+              f"{host_us:.1f} us per call; bound {bound_ms:.5f} ms ({bound_by})")
+        print(f"matcher plan {name}: {launch.cluster} CTAs per image x {batch} = {launch.ctas} CTAs "
+              f"of {launch.threads} threads ({launch.slice_cols} columns each), "
+              f"{launch.smem_bytes} B shared memory, "
+              f"{at_once} clusters fit the card at once; "
+              f"{rescans} row rescans (plain model); empty kernel of that shape "
+              f"{floor_ms:.4f} ms replayed from a CUDA graph, {floor_call_ms:.4f} ms per call")
+        if name == "synthetic_b32":  # the train path's batch: the kernels line's numbers
+            plain_ms = cuda_ms(torch, lambda: match_anchors(*args), warmup=2, iters=10)
+            print(f"matcher plain version on {name}: {plain_ms:.4f} ms")
+            result = {"max_abs_err": max_abs_err, "ms": kernel_ms,
+                      "back_to_back_ms": back_to_back_ms, "graph_ms": device_ms,
+                      "host_us": host_us, "launch_floor_ms": floor_ms, "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by}
+    return result
 
 
 def conv_phase(torch, np, dev) -> dict:
@@ -532,12 +618,7 @@ def conv_phase(torch, np, dev) -> dict:
 
         kernel_ms = cuda_ms(torch, kernel, warmup=3, iters=20)
         back_to_back_ms = stream_ms(torch, kernel)
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        for _ in range(20):  # enqueue only: the wrapper's host time per call
-            kernel()
-        host_us = (time.perf_counter() - t) / 20 * 1e6
-        torch.cuda.synchronize()
+        host_us = enqueue_us(torch, kernel, iters=20)
         plan = cuda_conv.plan_conv(hw, hw, pool)
         encode_us = cuda_conv.tensor_map_encode_us(x, plan)
         plain_ms = cuda_ms(torch, lambda: conv3x3_plain(x, k, b, True, pool), warmup=2, iters=5)

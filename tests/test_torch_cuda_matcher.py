@@ -11,6 +11,7 @@ import torch
 
 from ssd_object_detection_tpu_torch.ops import cuda_matcher
 from ssd_object_detection_tpu_torch.ops.anchors import SSD512_SPEC, generate_anchors
+from ssd_object_detection_tpu_torch.ops.matcher_model import match_anchors_model, stress_cases
 from ssd_object_detection_tpu_torch.ops.matching import match_anchors
 
 
@@ -60,6 +61,68 @@ def test_kernel_bit_equal_to_plain(cuda_device, name):
         assert torch.equal(g, w), field
 
 
+STRESS = stress_cases(generate_anchors(), generate_anchors(SSD512_SPEC))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STRESS))
+def test_kernel_bit_equal_to_plain_on_stress_cases(cuda_device, name):
+    """What strains the row cache and the cluster: conflicts at every step, more GTs
+    than anchors, empty and ragged slices, every cluster size, a thresh below -1."""
+    *arrays, thresh = STRESS[name]
+    args = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device) for x in arrays]
+    got = cuda_matcher.match_anchors_cuda(*args, thresh)
+    want = match_anchors(*args, thresh)
+    torch.cuda.synchronize()
+    for field, g, w in zip(got._fields, got, want):
+        assert torch.equal(g, w), (field, int((g != w).sum()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,cluster", [(1, 8), (16, 8), (17, 4), (33, 4), (34, 2), (66, 2),
+                                           (67, 1), (140, 1)])
+def test_every_cluster_size_launches_and_agrees(cuda_device, batch, cluster):
+    """Batches on both sides of each cluster size's limit (8, 4, 2, 1 CTAs per image at
+    20,001 anchors on 132 SMs): the plan's shape can be scheduled, and the result is the
+    plain matcher's and the model's."""
+    num_anchors = 20001
+    cls, boxes, valid, anchors = _case(batch, batch, 20,
+                                       generate_anchors(SSD512_SPEC)[:num_anchors], 0.4)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    launch = cuda_matcher.plan(batch, 20, num_anchors, sms)
+    assert sms != 132 or launch.cluster == cluster
+    assert cuda_matcher.max_active_clusters(launch, cuda_device) >= 1
+    args = [torch.from_numpy(x).to(cuda_device) for x in (cls, boxes, valid, anchors)]
+    got = cuda_matcher.match_anchors_cuda(*args)
+    want = match_anchors(*args)
+    model, _ = match_anchors_model(*(a.cpu() for a in args), cluster=launch.cluster)
+    for field, g, w, m in zip(got._fields, got, want, model):
+        assert torch.equal(g, w), field
+        assert torch.equal(g.cpu(), m), field
+
+
+@pytest.mark.cuda
+def test_a_call_allocates_only_its_outputs(cuda_device):
+    """No IoU or cache scratch: the peak above the inputs is the four outputs."""
+    args = [torch.from_numpy(x).to(cuda_device) for x in CASES["ssd300_b32_g100"]]
+    cuda_matcher.match_anchors_cuda(*args)  # builds and loads the library
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = cuda_matcher.match_anchors_cuda(*args)
+    torch.cuda.synchronize()
+    outputs = sum(t.numel() * t.element_size() for t in got)
+    # the allocator rounds each of the four blocks up to 512 bytes
+    assert torch.cuda.max_memory_allocated() - before <= outputs + 4 * 512
+
+
+@pytest.mark.cuda
+def test_empty_launch_of_the_plan_shape(cuda_device):
+    launch = cuda_matcher.plan(32, 100, 8732)
+    cuda_matcher.empty_launch(launch, cuda_device)
+    torch.cuda.synchronize()
+
+
 @pytest.mark.cuda
 def test_kernel_refuses_what_it_does_not_take(cuda_device):
     cls, boxes, valid, anchors = (torch.from_numpy(x).to(cuda_device) for x in CASES["golden"])
@@ -69,3 +132,21 @@ def test_kernel_refuses_what_it_does_not_take(cuda_device):
         cuda_matcher.match_anchors_cuda(cls, boxes, valid, anchors.t().contiguous().t())
     with pytest.raises(ValueError, match="is on cpu"):
         cuda_matcher.match_anchors_cuda(cls.cpu(), boxes, valid, anchors)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cuda_matcher.match_anchors_cuda(cls, boxes, valid, torch.cat([anchors, anchors]).flatten()[1:13].view(3, 4))
+    with pytest.raises(ValueError, match="G >= 1"):
+        cuda_matcher.match_anchors_cuda(cls[:, :0], boxes[:, :0], valid[:, :0], anchors)
+    many = 6000  # more ground truths than any cluster's shared memory holds
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        cuda_matcher.match_anchors_cuda(
+            torch.zeros((1, many), dtype=torch.int32, device=cuda_device),
+            torch.zeros((1, many, 4), device=cuda_device),
+            torch.zeros((1, many), dtype=torch.bool, device=cuda_device), anchors)
+    # the C entry point itself refuses a plan that does not cover the columns
+    lib = cuda_matcher._library()
+    out = cuda_matcher.match_anchors_cuda(cls, boxes, valid, anchors)
+    err = lib.ssd_match_anchors(
+        boxes.data_ptr(), cls.data_ptr(), valid.data_ptr(), anchors.data_ptr(), 1, 2, 3, 0.5,
+        out.gt_index.data_ptr(), out.cls.data_ptr(), out.box.data_ptr(), out.mask.data_ptr(),
+        2, 128, 1, 4096, 0, torch.cuda.current_stream().cuda_stream)
+    assert err != 0
