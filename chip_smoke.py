@@ -42,6 +42,15 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      one batch from pageable and pinned memory, a profile of 5 Trainer steps (the
      host-to-device copies' streams, their overlap with kernels, the device-busy
      share), and the checkpoint and msgpack costs;
+  4c. the Trainer with the full augmentation recipe on the device (flip, expand, crop,
+     photometric; ops/augment.py) on 4b's fixture: one packed batch augmented on the card
+     and on the CPU from the same draws (valid, cls, boxes, crop rects, flips bit-equal,
+     pixels within 2e-5), the augmentation's stages timed by CUDA events, CUDA-graph
+     replay and torch.profiler (with what the profiler kept of the products), warmup 20 steps
+     + 2 epochs of 20 with the matcher once per micro-batch and no host flip in the
+     packed feed, a resume from the epoch-1 checkpoint whose epoch-2 losses are bit-equal
+     to a continuation, the steady-state ms per step beside 4b's flip-only figure, and
+     one profiled step's kernels;
   5. the fused conv3x3 op's own path (no model calls it, as in the JAX package):
      conv3x3_bias_relu at the three VGG trunk shapes it fuses (batch 32, bf16, the
      wgmma kernel), at the seams of that kernel's tiles (ragged rows and columns, tile
@@ -61,7 +70,15 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      make_predict_fn on 300x300 uint8, with every count set to 0 before and read after;
      output shapes and validity invariants, the resize on the card bit-equal to the
      CPU, detect_from_logits on the card equal to the CPU on separated logits; median
-     batch latency and img/s, the NMS fixpoint's iterations, a profile by kernel group;
+     batch latency and img/s, the NMS fixpoint's iterations (its capped count, with no
+     host read), a profile by kernel group;
+  7b. serving at full width (SSD300-VGG16, 81 classes, bf16, canvas 640x640, batch 32,
+     tiers 1, 8, 32): the live DetectorService's median and p90 detect_images latency
+     per tier, its host clock by stage and its program's device time (CUDA-graph replay
+     and torch.profiler); the exported bundle (torch.export, one program per tier) loaded by
+     DetectorService.from_artifact, equal to the live service at every tier and timed the
+     same way; the BatchingFrontEnd under 64 threads x 4 single-image requests (img/s,
+     p50 and p99 latency, mean dispatched batch);
   8. the evaluation gate: `python -m ssd_object_detection_tpu_torch.cli.eval_synthetic`
      at its defaults must reach mAP@0.5 > 0.9;
   9. prints the kernels line, then as its last line
@@ -73,6 +90,7 @@ exits non-zero with no result line; so does a machine without a CUDA device or a
 directory without the port package.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -259,19 +277,23 @@ PREDICT_GROUPS = (
 )
 
 
-def device_groups(prof, kernel_groups):
-    """(device ms by kernel group, [(ms, calls, name)] by kernel) of a torch.profiler run."""
+def profiled_kernels(prof):
+    """[(ms, calls, name)] by kernel of a torch.profiler run."""
     from torch.autograd import DeviceType
 
-    kernels = [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return [(e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+
+
+def group_kernels(kernels, kernel_groups):
+    """Device ms by kernel group of [(ms, calls, name)]."""
     groups = {}
     for ms, _, name in kernels:
         lower = name.lower()
         group = next((g for g, keys in kernel_groups if any(k in lower for k in keys)),
                      "other elementwise / reduction")
         groups[group] = groups.get(group, 0.0) + ms
-    return groups, kernels
+    return groups
 
 
 def format_groups(groups) -> str:
@@ -288,7 +310,8 @@ def profile_step(torch, step, label: str, kernel_groups) -> None:
         step()
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t) * 1e3
-    groups, kernels = device_groups(prof, kernel_groups)
+    kernels = profiled_kernels(prof)
+    groups = group_kernels(kernels, kernel_groups)
     if not kernels:
         print("profile: torch.profiler recorded no device time on this machine")
         return
@@ -297,6 +320,59 @@ def profile_step(torch, step, label: str, kernel_groups) -> None:
           f"(device busy {100 * busy / wall_ms:.1f} %); by group: {format_groups(groups)}")
     for ms, calls, name in sorted(kernels, reverse=True)[:8]:
         print(f"  {ms:8.3f} ms  {calls:4d}x  {name[:110]}")
+
+
+def device_kernels(torch, fn):
+    """[(ms, calls, name)] of the kernels of one call of `fn` (warm), in torch.profiler,
+    recorded after one warm-up step of the profiler. On the H100 machines the profiler
+    loses some kernel records, cold or warm (phase 4c prints both ways for the
+    augmentation's products), so these are the kernels it kept: their sum is a lower
+    bound on device time. `graph_ms` gives the whole where `fn` can be captured."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    kernels = []
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: kernels.extend(profiled_kernels(p))) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    return kernels
+
+
+def device_ms(torch, fn) -> float:
+    """The sum of the kernels torch.profiler kept of one call of `fn` (see
+    `device_kernels`: a lower bound on its device time); 0.0 where it records none."""
+    return sum(ms for ms, _, _ in device_kernels(torch, fn))
+
+
+def sm_clock_under_load(torch, fn, seconds: float = 2.5):
+    """nvidia-smi's readings of (SM clock MHz, its maximum MHz, power W) while `fn` runs
+    back to back for `seconds`, one reading after another from a second thread."""
+    import threading
+
+    readings, done = [], threading.Event()
+
+    def sample():
+        time.sleep(0.5)  # let the load reach its clock
+        while not done.is_set():
+            out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw",
+                                  "--format=csv,noheader,nounits"],
+                                 capture_output=True, text=True, timeout=30).stdout
+            readings.append(tuple(float(x) for x in out.splitlines()[0].split(",")))
+
+    sampler = threading.Thread(target=sample)
+    sampler.start()
+    end = time.perf_counter() + seconds
+    while time.perf_counter() < end:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+    done.set()
+    sampler.join()
+    return readings
 
 
 def conv_bound(x, out, oc: int):
@@ -484,11 +560,12 @@ def main() -> None:
           f"steps, matcher launches {cli_launches}, final loss {final_loss:.6f}; kernel == plain "
           f"on a Trainer batch (B={g[0].shape[0]} G={g[0].shape[1]} D={a.shape[0]})")
     cli_eval_phase(trainer)
-    production_phase(torch, np, dev, med)
+    aug_launches = production_phase(torch, np, dev, med, card=smi)
 
     conv = conv_phase(torch, np, dev)
     nms_phase(torch, np, nms, dev)
     detect_phase(torch, np, dev, anchors300)
+    serve_phase(torch, np, dev, smi)
     eval_gate_phase()
 
     # ---- 9. result lines ----------------------------------------------------------
@@ -498,7 +575,7 @@ def main() -> None:
         "route": "cuda",
         "source": MATCHER_SOURCE,
         "replaces": MATCHER_REPLACES,
-        "launches": launches,
+        "launches": launches + aug_launches,
         **matcher,
         "library_ms": None,
     }, {
@@ -791,10 +868,40 @@ def detect_phase(torch, np, dev, anchors300) -> None:
         per_call = nms.suppress_fixpoint.iterations / nms.suppress_fixpoint.calls
         print(f"detect latency {name}, SSD300-VGG16 bf16 batch {batch}, inputs on the card: "
               f"median {ms:.3f} ms = {batch / ms * 1e3:.1f} img/s; NMS fixpoint "
-              f"{per_call:.2f} iterations per call (each, and the final convergence test, reads "
-              f"one boolean on the host)")
+              f"{per_call:.2f} iterations per call (the capped min(K, 16), run with no "
+              f"convergence test: no host read)")
     profile_step(torch, lambda: fused(canvas, sizes), "one fused predict call (batch 32)",
                  PREDICT_GROUPS)
+
+    # the capped fixpoint against the loop that stops once alive stops changing (the JAX
+    # while_loop's semantics, one host read per iteration), in turns in this process
+    capped = nms.suppress_fixpoint
+
+    def converging(tri, max_iters: int = 16):
+        tri_f = tri.float()
+        alive = torch.ones(tri.shape[:-1], dtype=torch.bool, device=tri.device)
+        prev = torch.zeros_like(alive)
+        it = 0
+        while it < min(tri.shape[-1], max_iters) and bool((alive != prev).any()):
+            prev = alive
+            alive = ~(torch.matmul(alive.float().unsqueeze(-2), tri_f).squeeze(-2) > 0.5)
+            it += 1
+        return alive
+
+    def fused_with(fixpoint):
+        nms.suppress_fixpoint = fixpoint
+        try:
+            return fused(canvas, sizes), cuda_ms(torch, lambda: fused(canvas, sizes), warmup=3, iters=20)
+        finally:
+            nms.suppress_fixpoint = capped
+
+    turns = [fused_with(f) for f in (converging, capped, capped, converging)]
+    if not all(torch.equal(a, b) for a, b in zip(turns[0][0], turns[1][0])):
+        fail("fused predict: the capped and the converging fixpoint give other detections")
+    ms = [t[1] for t in turns]
+    print(f"fused predict batch {batch}, NMS fixpoint converging (a host read per iteration) / "
+          f"capped (none), in turns converging, capped, capped, converging: "
+          f"{', '.join(f'{x:.3f}' for x in ms)} ms; detections bit-equal")
 
 
 def cli_eval_phase(trainer) -> None:
@@ -968,12 +1075,30 @@ def trace_overlap(trace_path: str, wall_ms: float) -> str:
             f"({100 * busy_us / 1e3 / wall_ms:.1f} %)")
 
 
+def production_config(root: str, cache: str, variant: str, num_images: int, batch_size: int,
+                      resume: bool = False, epochs: int = 3):
+    """Phase 4b's Trainer config: the packed COCO-format fixture, flip on the host, shuffle
+    off, every step's losses logged (for the resume checks), a checkpoint per epoch."""
+    from ssd_object_detection_tpu_torch.config import Config
+
+    cfg = Config()
+    d, mc = cfg.data, cfg.model
+    d.dataset, d.dataset_root, d.packed_cache = "coco", root, cache
+    d.num_classes, d.max_gt, d.shuffle, d.augment.flip = 80, 100, False, True
+    mc.variant, mc.precision, mc.log_dir = variant, "bfloat16", os.path.join(root, "runs")
+    mc.log_interval, mc.log_scalar_interval = 0, 1
+    mc.train.batch_size, mc.train.epoch = batch_size, epochs
+    mc.warmup.step = num_images // batch_size
+    mc.checkpoint.keep, mc.checkpoint.resume = 2, resume
+    return cfg
+
+
 def production_phase(torch, np, dev, bare_step_ms: float, variant: str = "ssd300",
-                     num_images: int = 640, batch_size: int = 32) -> None:
-    """4b. The Trainer's production path on the card at full width (the defaults)."""
+                     num_images: int = 640, batch_size: int = 32, card: str = "") -> int:
+    """4b. The Trainer's production path on the card at full width (the defaults), then
+    4c on the same fixture; returns 4c's matcher launches."""
     from torch.profiler import ProfilerActivity, profile
 
-    from ssd_object_detection_tpu_torch.config import Config
     from ssd_object_detection_tpu_torch.data.packed import PackedConfig, PackedPipeline
     from ssd_object_detection_tpu_torch.models.convert import load_params_msgpack
     from ssd_object_detection_tpu_torch.models.ssd import MODEL_SPECS, SSD
@@ -990,17 +1115,8 @@ def production_phase(torch, np, dev, bare_step_ms: float, variant: str = "ssd300
               f"{spec.image_size}x{spec.image_size}, packed cache {mb:.1f} MB of uint8 images, "
               f"written in {time.time() - t:.1f} s")
 
-        def config(resume: bool = False) -> Config:
-            cfg = Config()
-            d, mc = cfg.data, cfg.model
-            d.dataset, d.dataset_root, d.packed_cache = "coco", root, cache
-            d.num_classes, d.max_gt, d.shuffle, d.augment.flip = 80, 100, False, True
-            mc.variant, mc.precision, mc.log_dir = variant, "bfloat16", os.path.join(root, "runs")
-            mc.log_interval, mc.log_scalar_interval = 0, 1  # every step's losses, for resume
-            mc.train.batch_size, mc.train.epoch = batch_size, 3
-            mc.warmup.step = num_images // batch_size
-            mc.checkpoint.keep, mc.checkpoint.resume = 2, resume
-            return cfg
+        def config(resume: bool = False):
+            return production_config(root, cache, variant, num_images, batch_size, resume)
 
         # ---- train: warmup + 3 epochs, a checkpoint per epoch ------------------------
         run = os.path.join(root, "run")
@@ -1187,12 +1303,389 @@ def production_phase(torch, np, dev, bare_step_ms: float, variant: str = "ssd300
         wall_ms = (time.perf_counter() - t) * 1e3
         trace = os.path.join(root, "trainer_trace.json")
         prof.export_chrome_trace(trace)
-        groups = device_groups(prof, TRAIN_GROUPS)[0]
+        groups = group_kernels(profiled_kernels(prof), TRAIN_GROUPS)
         print(f"profile of 5 Trainer steps: {trace_overlap(trace, wall_ms)}; device time by "
               f"group: {format_groups(groups)}; {sum(groups.values()) / 5:.3f} ms of device time "
               f"per step against {step_ms:.2f} ms per unprofiled step")
         del trainer, timed, state, x, images
         torch.cuda.empty_cache()
+        return device_augment_phase(torch, np, dev, root, cache, step_ms, card, variant,
+                                    num_images, batch_size)
+
+
+def device_augment_phase(torch, np, dev, root: str, cache: str, flip_step_ms: float, card: str,
+                         variant: str, num_images: int, batch_size: int) -> int:
+    """4c. The Trainer with the full recipe (flip, expand, crop, photometric) on the
+    device, on phase 4b's packed fixture; returns its matcher launches."""
+    from ssd_object_detection_tpu_torch.data.packed import PackedConfig, PackedPipeline
+    from ssd_object_detection_tpu_torch.ops import augment, cuda_matcher
+    from ssd_object_detection_tpu_torch.train.loop import Trainer
+    from ssd_object_detection_tpu_torch.train.step import create_train_state, make_train_step
+    from ssd_object_detection_tpu_torch.utils.device import true_divide
+
+    recipe = augment.AugConfig()
+    plain_batches = list(PackedPipeline(cache, PackedConfig(batch_size=batch_size, shuffle=False,
+                                                            augment_flip=False)))
+    # ---- the augmentation on the card against the CPU, from the same draws ------------
+    host = [torch.from_numpy(plain_batches[0][k]) for k in ("image", "gt_boxes", "gt_cls", "gt_valid")]
+    on_card = [x.to(dev) for x in host]
+    draws = augment.draw_augment(torch.Generator(device=dev).manual_seed(0), batch_size, recipe, dev)
+    draws_cpu = augment.AugDraws(*(x.cpu() for x in draws))
+    got = [x.cpu() for x in augment.augment_batch(*on_card, recipe, draws)]
+    want = augment.augment_batch(*host, recipe, draws_cpu)
+    window, rect, flip = (x.cpu() for x in augment.geometry_from_draws(on_card[1], on_card[3],
+                                                                      recipe, draws))
+    want_geometry = augment.geometry_from_draws(host[1], host[3], recipe, draws_cpu)
+    for name, a, b in (("valid", got[3], want[3]), ("cls", got[2], want[2]), ("boxes", got[1], want[1]),
+                       ("crop rect", rect, want_geometry[1]), ("flip", flip, want_geometry[2]),
+                       ("expand window", window, want_geometry[0])):
+        if not torch.equal(a, b):
+            fail(f"augmentation {name}: card and CPU differ in {int((a != b).sum())} entries")
+    pixel_err = (got[0] - want[0]).abs().max().item()
+    if not pixel_err <= 2e-5:
+        fail(f"augmentation pixels: card and CPU differ by {pixel_err:.3e} (tolerance 2e-5)")
+    expanded = int(((window[:, 2] - window[:, 0]) < 1).sum())
+    cropped = int((rect != torch.tensor([0.0, 0.0, 1.0, 1.0])).any(-1).sum())
+    size = host[0].shape[1]
+    print(f"augmentation card == CPU on one packed batch ({batch_size} x {size}x{size}, max_gt 100) from "
+          f"the same draws: valid, cls, boxes, crop rects, flips and expand windows bit-equal, "
+          f"pixels within {pixel_err:.3e} (tolerance 2e-5); {expanded} expanded, {cropped} cropped, "
+          f"{int(flip.sum())} flipped, {int(want[3].sum())} of {int(host[3].sum())} GTs kept")
+
+    # ---- its stages on the card (CUDA events) ------------------------------------------
+    img01 = true_divide(on_card[0].float(), 255.0)
+    s_in = img01.shape[1]
+    a, b = torch.ones(batch_size, device=dev), torch.zeros(batch_size, device=dev)
+    ry = augment.axis_matrix(a, b, s_in, s_in)
+    planar = img01.permute(0, 3, 1, 2).contiguous()
+    stages = {
+        "photometric": lambda: augment.photometric(img01, draws.photometric, 0.5),
+        "geometry from draws (50 crop attempts)":
+            lambda: augment.geometry_from_draws(on_card[1], on_card[3], recipe, draws),
+        "matrix build (2 x (B, S, S))":
+            lambda: (augment.axis_matrix(a, b, s_in, s_in), augment.axis_matrix(a, b, s_in, s_in)),
+        "two float32 products":
+            lambda: torch.matmul(torch.matmul(ry[:, None], planar), ry[:, None].transpose(-1, -2)),
+        "augment_batch whole": lambda: augment.augment_batch(*on_card, recipe, draws),
+    }
+    stage_ms = {k: (cuda_ms(torch, fn), graph_ms(torch, fn, calls=10, replays=3), device_ms(torch, fn))
+                for k, fn in stages.items()}
+    whole_ms = stage_ms["augment_batch whole"][1]
+    flop = 2 * 2 * batch_size * 3 * s_in ** 3
+    products_bound = flop / FP32_OPS_PER_S * 1e3
+    print(f"augmentation on the card, batch {batch_size} at {s_in}x{s_in} [{card}], by stage "
+          "(CUDA events per call / card time replayed from a CUDA graph / kernel time in "
+          "torch.profiler): "
+          + ", ".join(f"{k} {ev:.3f} / {gr:.3f} / {dev_ms:.3f} ms" for k, (ev, gr, dev_ms) in stage_ms.items())
+          + f"; the products are {flop / 1e9:.2f} GFLOP of float32, bound {products_bound:.3f} ms "
+          f"at 67 TFLOP/s (TF32 off), {2 * ry.numel() * 4 / 1e6:.1f} MB of matrices")
+    # what the products' kernel time stands on: its kernels, a bare bmm of the same shape
+    # back to back, and the SM count and clock under that load
+    if dev.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+
+        products = stages["two float32 products"]
+        for activities in ([ProfilerActivity.CPU, ProfilerActivity.CUDA], [ProfilerActivity.CUDA]):
+            products()
+            torch.cuda.synchronize()
+            with profile(activities=activities) as prof:
+                products()
+                torch.cuda.synchronize()
+            print(f"  torch.profiler ({' + '.join(a.name for a in activities)} tracing from the "
+                  f"call's start) of the products: {len(prof.events())} events; by key: " + "; ".join(
+                      f"{e.key[:90]} [{str(e.device_type).split('.')[-1]}] {e.count}x self device "
+                      f"{e.self_device_time_total:.1f} us, device {e.device_time_total:.1f} us"
+                      for e in prof.key_averages()))
+        print("  the same after one warm-up step of the profiler (device tracing): " + "; ".join(
+            f"{name[:90]} {calls}x {ms * 1e3:.1f} us" for ms, calls, name in device_kernels(torch, products)))
+        per_channel = ry.repeat_interleave(3, 0)
+        stacked = planar.reshape(-1, s_in, s_in)
+
+        def bmm():
+            return torch.bmm(per_channel, stacked)
+
+        bmm_ms = stream_ms(torch, bmm, warmup=5, iters=200)
+        bmm_kernels = device_kernels(torch, bmm)
+        readings = sm_clock_under_load(torch, bmm)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        clock = statistics.median(r[0] for r in readings) if readings else float("nan")
+        peak = sms * 128 * 2 * clock * 1e6  # 128 float32 lanes an SM, an FMA is 2 operations
+        print(f"  one product as a bare bmm ({per_channel.shape[0]} x {s_in}^3, {flop / 2e9:.2f} GFLOP): "
+              f"{bmm_ms:.4f} ms a call back to back (CUDA events, 200 calls) = "
+              f"{flop / 2 / bmm_ms / 1e9:.1f} TFLOP/s; kernels in torch.profiler "
+              + "; ".join(f"{ms:.4f} ms {calls}x {name[:80]}" for ms, calls, name in bmm_kernels)
+              + f"; {sms} SMs, SM clock under this load {sorted(r[0] for r in readings)} MHz (max "
+              f"{readings[0][1] if readings else 'not read'}), power {[r[2] for r in readings]} W "
+              f"-> float32 peak at the median clock {peak / 1e12:.2f} TFLOP/s [{card}]")
+        del per_channel, stacked
+    del img01, ry, planar, on_card, got, want
+
+    # ---- the Trainer: warmup + 2 epochs, a checkpoint per epoch ------------------------
+    def config(resume: bool = False):
+        cfg = production_config(root, cache, variant, num_images, batch_size, resume, epochs=2)
+        aug = cfg.data.augment
+        aug.device, aug.flip, aug.expand, aug.crop, aug.photometric = True, True, True, True, True
+        return cfg
+
+    run = os.path.join(root, "run_aug")
+    trainer = Trainer(config(), run_dir=run, device=dev)
+    if trainer.step_cfg.augment != recipe:
+        fail(f"phase 4c: the Trainer's step augments with {trainer.step_cfg.augment}, not {recipe}")
+    saved = {}
+    save_checkpoint = trainer.save_checkpoint
+
+    def save_and_keep(state, tag, phase):
+        save_checkpoint(state, tag, phase)
+        if tag == 1:
+            saved.update(model=clone_tree(torch, state.model.state_dict()),
+                         optimizer=clone_tree(torch, state.optimizer.state_dict()), step=state.step)
+
+    trainer.save_checkpoint = save_and_keep
+    cuda_matcher.match_anchors_cuda.launches = 0
+    t = time.time()
+    state = trainer.train()
+    torch.cuda.synchronize()
+    train_s = time.time() - t
+    launches = cuda_matcher.match_anchors_cuda.launches
+    mc = trainer.cfg.model
+    per_epoch = num_images // batch_size
+    steps = mc.warmup.step + mc.train.epoch * per_epoch
+    losses = [h["loss"] for h in trainer.history]
+    if launches != steps * trainer.step_cfg.accum_steps or len(losses) != steps \
+            or not all(math.isfinite(x) for x in losses):
+        fail(f"phase 4c Trainer: {launches} matcher launches, {len(losses)} losses, expected {steps}")
+    source = trainer._train_source
+    fed = next(iter(source))
+    if source.cfg.augment_flip or not np.array_equal(fed["image"], plain_batches[0]["image"]):
+        fail("phase 4c: the packed feed flipped on the host (PackedConfig.augment_flip "
+             f"{source.cfg.augment_flip}) or fed other pixels than the unflipped cache")
+    print(f"phase 4c Trainer ({variant} bf16, 81 classes, batch {batch_size}, max_gt 100, packed feed, "
+          f"flip + expand + crop + photometric on the device): warmup {mc.warmup.step} + "
+          f"{mc.train.epoch} x {per_epoch} steps in {train_s:.1f} s, matcher launches {launches}, "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; PackedConfig.augment_flip False and the feed's "
+          f"first batch equals the unflipped cache: the host flip did not run [{card}]")
+
+    # ---- resume from the epoch-1 checkpoint: epoch 2 against a continuation ------------
+    os.remove(os.path.join(run, "checkpoints", "ckpt_2.pt"))
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        resumed = Trainer(config(resume=True), run_dir=run, device=dev)
+        rstate = resumed.train()
+        ref = Trainer(config(), run_dir=os.path.join(root, "continuation_aug"), device=dev)
+        ref.model.load_state_dict(saved["model"])
+        cstate = create_train_state(ref.model, ref._optimizer(ref.cfg.model.train), ref.main_schedule)
+        cstate.optimizer.load_state_dict(saved["optimizer"])
+        cstate.step = saved["step"]
+        ref._run_phase("train", cstate, ref.train_batches(epochs=1))
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    nondeterministic = sorted({str(w.message)[:120] for w in caught if "deterministic" in str(w.message)})
+    got = [h["loss"] for h in resumed.history]
+    want = [h["loss"] for h in ref.history]
+    if rstate.step != state.step or len(got) != per_epoch or got != want:
+        fail(f"phase 4c resume: step {rstate.step} (want {state.step}); epoch-2 losses {got} differ "
+             f"from the continuation's {want}; nondeterministic-op warnings: {nondeterministic}")
+    uninterrupted = losses[-per_epoch:]
+    rel = max(abs(x - y) / max(abs(y), 1e-12) for x, y in zip(got, uninterrupted))
+    print(f"phase 4c resume from ckpt_1.pt: epoch-2 losses bit-equal to the continuation (the draws "
+          f"are keyed on the step); nondeterministic-op warnings: {nondeterministic or 'none'}; "
+          f"against the uninterrupted run's epoch 2 (trained without deterministic algorithms) "
+          f"max relative difference {rel:.3e}")
+    del resumed, rstate, ref, cstate, saved
+
+    # ---- steady state against phase 4b's flip-only figure, and one profiled step -------
+    trainer.cfg.model.log_scalar_interval = 20
+    timed = create_train_state(trainer.model, trainer._optimizer(mc.train), trainer.main_schedule)
+    trainer._run_phase("train", timed, trainer.train_batches(epochs=1))  # warm
+
+    def epoch_ms() -> float:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer._run_phase("train", timed, trainer.train_batches(epochs=1))
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) * 1e3
+
+    epochs_ms = [epoch_ms() for _ in range(2)]
+    step_ms = sum(epochs_ms) / (2 * per_epoch)
+    dbatch = {k: torch.from_numpy(v).to(dev) for k, v in plain_batches[1].items()
+              if k in ("image", "gt_cls", "gt_boxes", "gt_valid")}
+    groups = group_kernels(device_kernels(torch, lambda: trainer.train_step(timed, dbatch)),
+                           TRAIN_GROUPS)
+    step_device_ms = sum(groups.values())
+    # host time to enqueue one step (it returns before the card finishes), with and
+    # without the augmentation: where it nears the step time, the step waits on the host
+    unaugmented = make_train_step(trainer.anchors, dataclasses.replace(trainer.step_cfg, augment=None))
+
+    def enqueue_ms(step_fn) -> float:
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step_fn(timed, dbatch)
+            times.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        return statistics.median(times)
+
+    enqueue = [enqueue_ms(f) for f in (trainer.train_step, unaugmented, unaugmented, trainer.train_step)]
+    print(f"phase 4c Trainer steady state with device augmentation: {step_ms:.2f} ms per step "
+          f"({', '.join(f'{ms / per_epoch:.2f}' for ms in epochs_ms)} per epoch of {per_epoch}) = "
+          f"{batch_size / step_ms * 1e3:.1f} img/s, beside phase 4b's flip-only {flip_step_ms:.2f} ms "
+          f"= {batch_size / flip_step_ms * 1e3:.1f} img/s in this process [{card}]; one profiled "
+          f"augmented step: {step_device_ms:.3f} ms of kernels kept by torch.profiler, a lower bound "
+          f"on its device time ({format_groups(groups)}), beside it "
+          f"the augmentation {whole_ms:.3f} ms (replayed from a CUDA graph above) "
+          f"({100 * whole_ms / step_device_ms if step_device_ms else 0.0:.1f} %); host time to "
+          f"enqueue one step on a batch already on the card, in turns augmented, unaugmented, "
+          f"unaugmented, augmented: {', '.join(f'{x:.2f}' for x in enqueue)} ms")
+    del trainer, timed, state, dbatch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_phase(torch, np, dev, card: str, variant: str = "ssd300",
+                tiers=(1, 8, 32)) -> None:
+    """7b. Serving at full width (the defaults): the live DetectorService per batch tier,
+    the exported bundle served through from_artifact (equal to live), and the batching
+    front end."""
+    import threading
+
+    from ssd_object_detection_tpu_torch.eval import serve
+    from ssd_object_detection_tpu_torch.eval.runner import _fetch_detections
+    from ssd_object_detection_tpu_torch.models.ssd import MODEL_SPECS, SSD
+    from ssd_object_detection_tpu_torch.ops.anchors import generate_anchors
+    from ssd_object_detection_tpu_torch.ops.preprocess import pack_canvas
+
+    spec, batch, canvas_hw = MODEL_SPECS[variant], max(tiers), (640, 640)
+    model = SSD(num_classes=81, spec=spec, dtype=torch.bfloat16)
+    model = model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    anchors = generate_anchors(spec.anchor_spec)
+    kw = dict(image_size=spec.image_size, canvas_hw=canvas_hw, score_thresh=0.01)
+    live = serve.DetectorService(model, anchors, batch_size=batch, batch_tiers=tiers, **kw)
+    requests = {t: mixed_images(np, t, seed=t) for t in tiers}
+
+    def latency(service, t: int):
+        for _ in range(3):
+            service.detect_images(requests[t])
+        times = []
+        for _ in range(20):
+            start = time.perf_counter()
+            service.detect_images(requests[t])
+            times.append((time.perf_counter() - start) * 1e3)
+        return statistics.median(times), np.percentile(times, 90)
+
+    def split(t: int) -> str:
+        """One live request's host clock by stage (each ending in a synchronize), and the
+        program's device time: the sum of its kernels in torch.profiler."""
+        marks = [time.perf_counter()]
+        canvas, sizes = pack_canvas(requests[t], canvas_hw)
+        marks.append(time.perf_counter())
+        canvas_t, sizes_t = torch.from_numpy(canvas).to(dev), torch.from_numpy(sizes).to(dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        det = live._predict(canvas_t, sizes_t)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        _fetch_detections(det)
+        marks.append(time.perf_counter())
+        live.detect_images(requests[t])
+        marks.append(time.perf_counter())
+        names = ("canvas pack", "upload", "program", "fetch", "whole detect_images")
+        program = (device_ms(torch, lambda: live._predict(canvas_t, sizes_t)),
+                   graph_ms(torch, lambda: live._predict(canvas_t, sizes_t), calls=5, replays=3))
+        return (", ".join(f"{n} {(b - a) * 1e3:.3f}" for n, a, b in zip(names, marks, marks[1:]))
+                + f"; the program's device time {program[0]:.3f} (its kernels in torch.profiler), "
+                f"{program[1]:.3f} (replayed from a CUDA graph)")
+
+    live.warm()
+    for t in tiers:
+        split(t)
+        print(f"serve live tier {t} host clock by stage, ms [{card}]: {split(t)}")
+
+    export_s = {}
+    for t in tiers:
+        start = time.time()
+        blob = serve.export_fused_detector(model, anchors, batch_size=t, **kw)
+        export_s[t] = (time.time() - start, len(blob))
+    del blob
+    start = time.time()
+    bundle = serve.export_fused_detector_bundle(model, anchors, tiers, **kw)
+    bundle_s = time.time() - start
+    start = time.time()
+    art = serve.DetectorService.from_artifact(bundle, device=dev)
+    load_s = time.time() - start
+    if art._tiers != list(tiers) or art._canvas_hw != canvas_hw:
+        fail(f"artifact bundle: tiers {art._tiers}, canvas {art._canvas_hw}")
+    print(f"export bundle (tiers {list(tiers)}) [{card}]: "
+          + ", ".join(f"tier {t} {s:.1f} s ({n / 1e6:.1f} MB)" for t, (s, n) in sorted(export_s.items()))
+          + f"; the bundle of all tiers {bundle_s:.1f} s, {len(bundle) / 1e6:.1f} MB; "
+          f"from_artifact {load_s:.1f} s")
+    for t in tiers:
+        got, want = art.detect_images(requests[t]), live.detect_images(requests[t])
+        if json.dumps(got) != json.dumps(want):
+            fail(f"artifact tier {t}: detections differ from the live service's")
+        canvas_t, sizes_t = (torch.from_numpy(x).to(dev) for x in pack_canvas(requests[t], canvas_hw))
+        program_ms = [device_ms(torch, lambda s=s: s._predict(canvas_t, sizes_t)) for s in (live, art)]
+        print(f"artifact tier {t}: {sum(len(d) for d in got)} detections on {t} images, equal to "
+              f"the live service's; the program's device time (its kernels in torch.profiler) "
+              f"live {program_ms[0]:.3f} / artifact {program_ms[1]:.3f} ms [{card}]")
+    art.warm()
+    for t in tiers:  # in turns: live, artifact, artifact, live
+        turns = [latency(service, t) for service in (live, art, art, live)]
+        p50 = [x[0] for x in turns]
+        p90 = [x[1] for x in turns]
+        print(f"serve tier {t} ({variant} bf16, canvas 640x640, score 0.01) [{card}]: "
+              f"detect_images median / p90 over 20 calls, in turns live, artifact, artifact, live: "
+              + ", ".join(f"{a:.3f} / {b:.3f}" for a, b in zip(p50, p90))
+              + f" ms; live {2 * t / (p50[0] + p50[3]) * 1e3:.1f} img/s, artifact "
+              f"{2 * t / (p50[1] + p50[2]) * 1e3:.1f} img/s (canvas pack, upload, program, one "
+              f"fetch and the detection dicts, host clock)")
+    del art, bundle
+
+    # ---- the batching front end: 64 threads x 4 single-image requests ------------------
+    images = mixed_images(np, 256, seed=3)
+    dispatched = []
+    detect_images = live.detect_images
+
+    def counting(batch_images):
+        start = time.perf_counter()
+        result = detect_images(batch_images)
+        dispatched.append((len(batch_images), (time.perf_counter() - start) * 1e3))
+        return result
+
+    live.detect_images = counting
+    front = serve.BatchingFrontEnd(live)
+    request_ms, errors = [], []
+
+    def client(i: int):
+        try:
+            for j in range(4):
+                start = time.perf_counter()
+                front.submit(images[4 * i + j])
+                request_ms.append((time.perf_counter() - start) * 1e3)
+        except Exception as e:  # reported below; the phase fails on any
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(64)]
+    start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall_s = time.perf_counter() - start
+    front.close()
+    live.detect_images = detect_images
+    if errors or len(request_ms) != 256 or any(t.is_alive() for t in threads):
+        fail(f"batching front end: {len(request_ms)} of 256 requests answered, errors {errors[:3]}")
+    print(f"BatchingFrontEnd over the live service, 64 threads x 4 single uint8 images of mixed "
+          f"sizes [{card}]: {256 / wall_s:.1f} img/s, request p50 {np.percentile(request_ms, 50):.2f} ms, "
+          f"p99 {np.percentile(request_ms, 99):.2f} ms, {len(dispatched)} dispatches, mean batch "
+          f"{statistics.mean(n for n, _ in dispatched):.2f} (sizes {[n for n, _ in dispatched]}); the "
+          f"dispatcher ran detect_images {sum(ms for _, ms in dispatched):.1f} ms of the "
+          f"{wall_s * 1e3:.1f} ms wall")
+    del live, model
+    torch.cuda.empty_cache()
 
 
 def eval_gate_phase() -> None:

@@ -16,16 +16,13 @@ import json
 import logging
 from typing import Dict, Optional, Sequence
 
-import torch
-
+from ssd_object_detection_tpu_torch.cli.common import build_model
 from ssd_object_detection_tpu_torch.config import load_config
 from ssd_object_detection_tpu_torch.data.coco import open_split
 from ssd_object_detection_tpu_torch.data.pipeline import CocoPipeline, PipelineConfig
 from ssd_object_detection_tpu_torch.data.synthetic import SyntheticDetectionDataset
 from ssd_object_detection_tpu_torch.eval.predict import make_predict_fn
 from ssd_object_detection_tpu_torch.eval.runner import evaluate_batches
-from ssd_object_detection_tpu_torch.models.convert import load_params_msgpack
-from ssd_object_detection_tpu_torch.models.ssd import MODEL_SPECS, SSD
 from ssd_object_detection_tpu_torch.ops.anchors import generate_anchors
 from ssd_object_detection_tpu_torch.utils.device import resolve_device
 
@@ -50,13 +47,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     cfg = load_config(args.config)
     device = resolve_device(args.device)
     eval_batch_size = 8 if cfg.data.dataset == "synthetic" else cfg.model.train.batch_size
-    spec = MODEL_SPECS[cfg.model.variant]
-    dtype = torch.bfloat16 if cfg.model.precision == "bfloat16" else torch.float32
-    model = SSD(num_classes=cfg.data.num_classes + 1, spec=spec, dtype=dtype)
-    model = model.init_weights(torch.Generator().manual_seed(0))
-    if args.weights:
-        load_params_msgpack(model, args.weights)
-    model = model.to(device)
+    model, spec = build_model(cfg, args.weights, device)
 
     predict = make_predict_fn(
         model, generate_anchors(spec.anchor_spec), variances=cfg.model.loss.variances,

@@ -8,14 +8,16 @@ NMS then run on the pooled candidates only. With nms_mode="per_class" the result
 that of ops/nms.batched_nms on fully materialized scores; the default "merged" examines
 only the global top-M (anchor, class) pairs (ops/nms.nms_on_pool_merged).
 
-The factories take the port's SSD module (already on its device) and return
-`predict(images)` / `predict(canvas_u8, sizes)`, which run under
-torch.inference_mode() on the model's device.
+Each path is an nn.Module (`Detector`, `FusedDetector`) around the port's SSD module and
+its anchors, returning the four Detections tensors as a tuple: eval/serve.py exports
+these modules with torch.export. The factories wrap them as `predict(images)` /
+`predict(canvas_u8, sizes)`, which run under torch.inference_mode() on the model's
+device (the model is already there).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +96,48 @@ def _model_device(model: nn.Module) -> torch.device:
     return next(model.parameters()).device
 
 
+class _DetectHead(nn.Module):
+    """The SSD module, its anchors (a buffer on the model's device) and the keyword
+    arguments of detect_from_logits (its defaults where one is left out)."""
+
+    def __init__(self, model: nn.Module, anchors, detect_kw: Dict):
+        super().__init__()
+        self.model = model
+        anchors_t = torch.as_tensor(np.asarray(anchors, np.float32))
+        self.register_buffer("anchors", anchors_t.to(_model_device(model)), persistent=False)
+        self.detect_kw = detect_kw
+
+    def detect(self, images01: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        pred_loc, pred_logits = self.model(normalize01(images01))
+        return tuple(detect_from_logits(pred_loc, pred_logits, self.anchors, **self.detect_kw))
+
+
+class Detector(_DetectHead):
+    """images (B, S, S, 3), float32 in [0, 1] or uint8 (scaled on the device) ->
+    (boxes, scores, classes, valid)."""
+
+    def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        if images.dtype == torch.uint8:  # device-side scaling, 4x less host-to-device
+            images = true_divide(images.float(), 255.0)
+        return self.detect(images)
+
+
+class FusedDetector(_DetectHead):
+    """planar uint8 canvas (B, 3, Hc, Wc) + per-image (h, w) sizes (B, 2) int32 ->
+    on-device resize -> normalize -> forward -> decode -> NMS ->
+    (boxes, scores, classes, valid)."""
+
+    def __init__(self, model: nn.Module, anchors, image_size: int, resize_method: str,
+                 detect_kw: Dict):
+        super().__init__(model, anchors, detect_kw)
+        self.image_size = image_size
+        self.resize_method = resize_method
+
+    def forward(self, canvas_u8: torch.Tensor, sizes: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return self.detect(resize_bilinear_planar(canvas_u8, sizes, self.image_size,
+                                                  method=self.resize_method))
+
+
 def make_predict_fn(
     model: nn.Module,
     anchors,
@@ -110,21 +154,15 @@ def make_predict_fn(
 
     `images` (B, S, S, 3) are float32 in [0, 1] or uint8 in [0, 255] (scaled on the
     device), as numpy arrays or tensors; normalization to [-1, 1] happens inside."""
-    device = _model_device(model)
-    anchors_t = torch.as_tensor(np.asarray(anchors, np.float32)).to(device)
+    detector = Detector(model, anchors, dict(
+        variances=variances, iou_thresh=iou_thresh, score_thresh=score_thresh,
+        pre_nms_top_k=pre_nms_top_k, top_k_per_class=top_k_per_class,
+        max_detections=max_detections, nms_mode=nms_mode, merged_top_k=merged_top_k))
+    device = detector.anchors.device
 
     @torch.inference_mode()
     def predict(images) -> Detections:
-        images = torch.as_tensor(images).to(device, non_blocking=True)
-        if images.dtype == torch.uint8:  # device-side scaling, 4x less host-to-device
-            images = true_divide(images.float(), 255.0)
-        pred_loc, pred_logits = model((images - 0.5) * 2.0)
-        return detect_from_logits(
-            pred_loc, pred_logits, anchors_t,
-            variances=variances, iou_thresh=iou_thresh, score_thresh=score_thresh,
-            pre_nms_top_k=pre_nms_top_k, top_k_per_class=top_k_per_class,
-            max_detections=max_detections, nms_mode=nms_mode, merged_top_k=merged_top_k,
-        )
+        return Detections(*detector(torch.as_tensor(images).to(device, non_blocking=True)))
 
     return predict
 
@@ -150,20 +188,15 @@ def make_fused_predict_fn(
     (B, 3, Hc, Wc) uint8 canvas and `sizes` the per-image (h, w) extents (both from
     ops/preprocess.pack_canvas). `resize_method`: "matmul" (bf16 weight rounding,
     ops/preprocess.py) or "gather" (exact float32 arithmetic)."""
-    device = _model_device(model)
-    anchors_t = torch.as_tensor(np.asarray(anchors, np.float32)).to(device)
+    detector = FusedDetector(model, anchors, image_size, resize_method, dict(
+        variances=variances, iou_thresh=iou_thresh, score_thresh=score_thresh,
+        pre_nms_top_k=pre_nms_top_k, top_k_per_class=top_k_per_class,
+        max_detections=max_detections, nms_mode=nms_mode, merged_top_k=merged_top_k))
+    device = detector.anchors.device
 
     @torch.inference_mode()
     def predict(canvas_u8, sizes) -> Detections:
-        canvas_u8 = torch.as_tensor(canvas_u8).to(device, non_blocking=True)
-        sizes = torch.as_tensor(sizes).to(device, non_blocking=True)
-        images01 = resize_bilinear_planar(canvas_u8, sizes, image_size, method=resize_method)
-        pred_loc, pred_logits = model(normalize01(images01))
-        return detect_from_logits(
-            pred_loc, pred_logits, anchors_t,
-            variances=variances, iou_thresh=iou_thresh, score_thresh=score_thresh,
-            pre_nms_top_k=pre_nms_top_k, top_k_per_class=top_k_per_class,
-            max_detections=max_detections, nms_mode=nms_mode, merged_top_k=merged_top_k,
-        )
+        return Detections(*detector(torch.as_tensor(canvas_u8).to(device, non_blocking=True),
+                                    torch.as_tensor(sizes).to(device, non_blocking=True)))
 
     return predict

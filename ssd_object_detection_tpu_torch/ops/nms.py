@@ -7,12 +7,15 @@ fixpoint, (4) a final top-`max_detections`.
 
 Greedy NMS as a fixpoint: the keep set is the unique solution of
     alive[j]  <=>  no i < j (score-descending order) with alive[i] and IoU(i, j) > t,
-reached by iterating alive' = ~(alive @ tri > 0.5) until alive stops changing, capped at
-min(K, 16) iterations. `tri` holds 0/1 and the products are summed in float32, so the
-sums are exact integers whether or not TF32 is on (0 and 1 are exact in TF32). The
-loop's test reads one boolean on the host before each iteration and once after the
-last (iterations + 1 host syncs per call); `suppress_fixpoint` counts its calls and
-iterations (`.calls`, `.iterations`) so a run can report them.
+reached by iterating alive' = ~(alive @ tri > 0.5) for min(K, 16) iterations. `tri`
+holds 0/1 and the products are summed in float32, so the sums are exact integers
+whether or not TF32 is on (0 and 1 are exact in TF32). The JAX package stops its
+`lax.while_loop` once alive stops changing; here the loop always runs its capped count
+with no convergence test, which reads nothing on the host (the detect path can be
+captured by `torch.export`) and keeps the same keep set: once alive equals its
+previous value, every further iteration computes that value again.
+`suppress_fixpoint` counts its calls and iterations (`.calls`, `.iterations`) so a run
+can report them.
 
 Tie order: `lax.top_k` and the stable `lax.sort` of the JAX package put the lower index
 first among equal scores. `torch.topk` promises no tie order on CUDA, so every top-k
@@ -75,18 +78,13 @@ def _suppression_matrix(x1, y1, x2, y2, iou_thresh: float) -> torch.Tensor:
 def suppress_fixpoint(tri: torch.Tensor, max_iters: int = 16) -> torch.Tensor:
     """Keep-mask (..., K) from a score-ordered suppression matrix tri (..., K, K) bool,
     tri[i, j] where candidate i (higher-scored) would suppress j."""
-    k = tri.shape[-1]
+    iterations = min(tri.shape[-1], max_iters)
     tri_f = tri.float()
     alive = torch.ones(tri.shape[:-1], dtype=torch.bool, device=tri.device)
-    prev = torch.zeros_like(alive)
-    it = 0
-    while it < min(k, max_iters) and bool((alive != prev).any()):
-        prev = alive
-        suppressed = torch.matmul(alive.float().unsqueeze(-2), tri_f).squeeze(-2) > 0.5
-        alive = ~suppressed
-        it += 1
+    for _ in range(iterations):
+        alive = ~(torch.matmul(alive.float().unsqueeze(-2), tri_f).squeeze(-2) > 0.5)
     suppress_fixpoint.calls += 1
-    suppress_fixpoint.iterations += it
+    suppress_fixpoint.iterations += iterations
     return alive
 
 

@@ -19,9 +19,14 @@ Port of ssd_object_detection_tpu/train/loop.py (single device):
     `torch.utils.tensorboard`, and the tqdm bar: each skipped with one log line where
     its package is missing, as the JAX Trainer does without tensorflow or tqdm.
 
-Not ported, each raising NotImplementedError: on-device augmentation (ROADMAP A10),
-the Keras VGG import `pretrained_vgg` (A11), `data_parallel > 1` (A12), `remat` and
-`debug_nans` (A15).
+With `data.augment.device` (the default) and any of expand, crop or photometric asked
+for, the whole recipe, flip included, runs inside the train step (ops/augment.py) and
+both feeds hand it clean resized images: the packed feed drops its host flip, the
+decode feed its host flip, expand, crop and photometric.
+
+Not ported, each raising NotImplementedError: the Keras VGG import `pretrained_vgg`
+(ROADMAP A11), data parallelism (A12: `data_parallel > 1`, or the default 0 where more
+than one CUDA device divides the batch), `remat` and `debug_nans` (A15).
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from ssd_object_detection_tpu_torch.data.synthetic import SyntheticDetectionData
 from ssd_object_detection_tpu_torch.models.convert import load_params_msgpack, save_params_msgpack
 from ssd_object_detection_tpu_torch.models.ssd import MODEL_SPECS, SSD
 from ssd_object_detection_tpu_torch.ops.anchors import generate_anchors
+from ssd_object_detection_tpu_torch.ops.augment import AugConfig
 from ssd_object_detection_tpu_torch.train.checkpoint import CheckpointManager
 from ssd_object_detection_tpu_torch.train.optim import (
     exponential_decay,
@@ -61,14 +67,23 @@ from ssd_object_detection_tpu_torch.utils.device import resolve_device, true_div
 logger = logging.getLogger(__name__)
 
 
-def _refuse_unported(cfg: Config) -> None:
+def _auto_data_parallel(batch_size: int, device: torch.device) -> int:
+    """The devices `parallel.data_parallel: 0` means: as in the JAX Trainer, the most
+    local devices that divide the batch (1 off CUDA)."""
+    n = torch.cuda.device_count() if device.type == "cuda" else 1
+    while batch_size % n:
+        n -= 1
+    return n
+
+
+def _refuse_unported(cfg: Config, device: torch.device) -> None:
     """Raise for every config option whose behaviour the port does not have yet."""
-    mc, aug = cfg.model, cfg.data.augment
+    mc, dp = cfg.model, cfg.parallel.data_parallel
     unported = {
-        "data.augment.device with expand/crop/photometric (on-device augmentation, "
-        "ROADMAP A10)": aug.device and (aug.expand or aug.crop or aug.photometric),
         "model.pretrained_vgg (ROADMAP A11)": bool(mc.pretrained_vgg),
-        "parallel.data_parallel > 1 (ROADMAP A12)": cfg.parallel.data_parallel > 1,
+        "parallel.data_parallel > 1 (ROADMAP A12)": dp > 1,
+        "parallel.data_parallel: 0 over more than one CUDA device (ROADMAP A12)":
+            dp == 0 and _auto_data_parallel(mc.train.batch_size, device) > 1,
         "model.remat (ROADMAP A15)": mc.remat,
         "model.debug_nans (ROADMAP A15)": mc.debug_nans,
     }
@@ -91,8 +106,8 @@ class _EpochIterable:
 class Trainer:
     def __init__(self, config: Config, run_dir: Optional[str] = None, device: str = "cuda"):
         self.cfg = config.validate()
-        _refuse_unported(self.cfg)
         self.device = resolve_device(device)
+        _refuse_unported(self.cfg, self.device)
         mc = self.cfg.model
 
         if run_dir is None:
@@ -113,12 +128,18 @@ class Trainer:
         self.main_schedule = exponential_decay(tr.lr.initial, tr.lr.decay_step, tr.lr.decay_rate)
         self.warmup_schedule = polynomial_decay(wu.lr.start, wu.step, wu.lr.end)
         accum = tr.batch_size // mc.split_train.batch_size if mc.split_train.enable else 1
+        aug = self.cfg.data.augment
+        self._device_augment = aug.device and (aug.expand or aug.crop or aug.photometric)
         self.step_cfg = StepConfig(
             match_thresh=mc.match_thresh,
             neg_pos_ratio=mc.loss.neg_pos_ratio,
             canonical_loss=mc.loss.canonical,
             variances=mc.loss.variances,
             accum_steps=accum,
+            augment=(AugConfig(photometric=aug.photometric, expand=aug.expand,
+                               crop=aug.crop, flip=aug.flip)
+                     if self._device_augment else None),
+            aug_seed=self.cfg.data.seed,
         )
         self.train_step = make_train_step(self.anchors, self.step_cfg)
         self.history: List[Dict[str, float]] = []
@@ -195,15 +216,23 @@ class Trainer:
             d.dataset_root, "train",
             mini_batch=d.mini_batch.num_data if d.mini_batch.enable else 0,
         )
-        # on-device augmentation is refused (A10), so whatever is asked runs on the
-        # host: flip composes with the packed cache, the pre-resize ops need the decoder
-        host_aug = d.augment.expand or d.augment.crop or d.augment.photometric
+        # with device augmentation the feeds hand the step clean resized images; host
+        # expand/crop/photometric need original pixels, so they bypass the packed cache
+        host = not self._device_augment
+        host_aug = host and (d.augment.expand or d.augment.crop or d.augment.photometric)
         if d.packed_cache and host_aug:
             logger.warning(
                 "data.packed_cache=%r is IGNORED because HOST expand/crop/"
                 "photometric augmentation (data.augment.device: false) needs "
                 "original-resolution pixels: training routes through the (much "
-                "slower) JPEG-decode pipeline.", d.packed_cache,
+                "slower) JPEG-decode pipeline. Set data.augment.device: true to "
+                "run the recipe on the device and keep the cache.", d.packed_cache,
+            )
+        if self._device_augment:
+            logger.info(
+                "augmentation runs on the device inside the train step (photometric=%s "
+                "expand=%s crop=%s flip=%s; ops/augment.py)", d.augment.photometric,
+                d.augment.expand, d.augment.crop, d.augment.flip,
             )
         if d.packed_cache and not host_aug:
             from ssd_object_detection_tpu_torch.data.packed import (
@@ -221,15 +250,16 @@ class Trainer:
             return PackedPipeline(
                 d.packed_cache,
                 PackedConfig(batch_size=batch_size, shuffle=d.shuffle,
-                             augment_flip=d.augment.flip, seed=d.seed),
+                             augment_flip=d.augment.flip and host, seed=d.seed),
             )
         return CocoPipeline(
             index,
             PipelineConfig(
                 image_size=self.spec.image_size, max_gt=d.max_gt, batch_size=batch_size,
                 shuffle=d.shuffle, seed=d.seed, num_workers=d.num_workers, prefetch=d.prefetch,
-                augment_flip=d.augment.flip, augment_expand=d.augment.expand,
-                augment_crop=d.augment.crop, augment_photometric=d.augment.photometric,
+                augment_flip=d.augment.flip and host, augment_expand=d.augment.expand and host,
+                augment_crop=d.augment.crop and host,
+                augment_photometric=d.augment.photometric and host,
             ),
         )
 

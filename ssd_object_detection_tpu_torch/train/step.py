@@ -1,9 +1,15 @@
 """The SSD train step, port of ssd_object_detection_tpu/train/step.py.
 
-One call: scale the images (uint8 is scaled on the device) -> build targets under
-no_grad through the matcher dispatch (the CUDA kernel on the card) -> forward ->
-MultiBox loss -> backward -> per-tensor clip at 0.01 of EACH micro-batch's gradients
--> sum / accum_steps -> learning rate = schedule(step) -> optimizer update.
+One call: optional on-device augmentation of the whole batch (ops/augment.py) -> scale
+the images (uint8 is scaled on the device) -> build targets under no_grad through the
+matcher dispatch (the CUDA kernel on the card) -> forward -> MultiBox loss -> backward
+-> per-tensor clip at 0.01 of EACH micro-batch's gradients -> sum / accum_steps ->
+learning rate = schedule(step) -> optimizer update.
+
+Augmentation draws come from a generator on the model's device, seeded from
+(aug_seed, step): the counterpart of the JAX step's fold_in(PRNGKey(aug_seed), step).
+Seeding reads nothing from the device, and a resumed run redraws the same
+augmentation at the same step.
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 from torch import nn
 
 from ssd_object_detection_tpu_torch.losses import LossInfo, multibox_loss
+from ssd_object_detection_tpu_torch.ops import augment
 from ssd_object_detection_tpu_torch.ops.matching import build_targets
 from ssd_object_detection_tpu_torch.train.optim import Schedule, clip_by_norm_per_tensor
 from ssd_object_detection_tpu_torch.utils.device import true_divide
@@ -33,7 +40,8 @@ class StepConfig:
     variances: Optional[Tuple[float, float]] = None
     clip_norm: float = 0.01
     accum_steps: int = 1  # split_train: batch_size // split_batch_size
-    augment: Optional[Any] = None  # on-device augmentation is not ported (ROADMAP A10)
+    augment: Optional[augment.AugConfig] = None  # on-device augmentation; None = off
+    aug_seed: int = 0
 
 
 @dataclasses.dataclass
@@ -51,6 +59,11 @@ def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer, sched
     return TrainState(model=model, optimizer=optimizer, schedule=schedule)
 
 
+def step_seed(aug_seed: int, step: int) -> int:
+    """The augmentation generator's seed at `step`: a 64-bit hash of (aug_seed, step)."""
+    return int(np.random.SeedSequence([aug_seed, step]).generate_state(1, np.uint64)[0])
+
+
 def make_train_step(anchors: np.ndarray, cfg: StepConfig = StepConfig()) -> Callable:
     """Returns train_step(state, batch) -> metrics dict of 0-d tensors (no host sync).
 
@@ -58,10 +71,11 @@ def make_train_step(anchors: np.ndarray, cfg: StepConfig = StepConfig()) -> Call
     int32, "gt_boxes": (B,G,4) relative cxcywh float32, "gt_valid": (B,G) bool}, as
     numpy arrays or tensors; they are moved to the model's device.
     """
-    if cfg.augment is not None:
-        raise NotImplementedError("on-device augmentation is not ported yet (ROADMAP A10)")
+    if cfg.augment is not None and not isinstance(cfg.augment, augment.AugConfig):
+        raise TypeError(f"StepConfig.augment takes an ops.augment.AugConfig, got {cfg.augment!r}")
     anchors_np = np.asarray(anchors, np.float32)
     anchors_on: Dict[torch.device, torch.Tensor] = {}
+    generators: Dict[torch.device, torch.Generator] = {}
 
     def loss_for_micro(model, anchors_t, image, gt_cls, gt_boxes, gt_valid) -> LossInfo:
         if image.dtype == torch.uint8:
@@ -85,6 +99,15 @@ def make_train_step(anchors: np.ndarray, cfg: StepConfig = StepConfig()) -> Call
             anchors_on[device] = torch.as_tensor(anchors_np).to(device).contiguous()
         anchors_t = anchors_on[device]
         tensors = [torch.as_tensor(batch[k]).to(device, non_blocking=True) for k in BATCH_KEYS]
+        if cfg.augment is not None:  # the whole batch, before the micro-batch split
+            if device not in generators:
+                generators[device] = torch.Generator(device=device)
+            gen = generators[device]
+            gen.manual_seed(step_seed(cfg.aug_seed, state.step))
+            draws = augment.draw_augment(gen, tensors[0].shape[0], cfg.augment, device)
+            image, gt_boxes, gt_cls, gt_valid = augment.augment_batch(
+                tensors[0], tensors[2], tensors[1], tensors[3], cfg.augment, draws)
+            tensors = [image, gt_cls, gt_boxes, gt_valid]
         if tensors[0].shape[0] % cfg.accum_steps:
             raise ValueError(f"batch {tensors[0].shape[0]} does not split into {cfg.accum_steps} micro-batches")
         micro_batches = zip(*(t.chunk(cfg.accum_steps) for t in tensors))

@@ -63,6 +63,15 @@ def test_port_runs_with_jax_blocked():
         "logits[0, 7, 1] = 20.0\n"
         "det = detect_from_logits(torch.zeros(1, a.shape[0], 4), logits, a)\n"
         "assert int(det.valid.sum()) == 1 and int(det.classes[0, 0]) == 1\n"
+        "import ssd_object_detection_tpu_torch.cli.serve, ssd_object_detection_tpu_torch.cli.export\n"
+        "import ssd_object_detection_tpu_torch.cli.infer\n"
+        "from ssd_object_detection_tpu_torch.ops import augment\n"
+        "cfg = augment.AugConfig()\n"
+        "draws = augment.draw_augment(torch.Generator().manual_seed(0), 2, cfg, torch.device('cpu'))\n"
+        "out = augment.augment_batch(torch.zeros(2, 8, 8, 3, dtype=torch.uint8), boxes.repeat(2, 1, 1),\n"
+        "                            torch.tensor([[3], [3]], dtype=torch.int32),\n"
+        "                            torch.ones(2, 1, dtype=torch.bool), cfg, draws)\n"
+        "assert tuple(out[0].shape) == (2, 8, 8, 3)\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,

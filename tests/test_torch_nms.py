@@ -147,3 +147,56 @@ def test_suppress_fixpoint_stops_at_its_cap():
     got = nms.suppress_fixpoint(torch.from_numpy(tri))
     want = jax_nms._suppress_fixpoint(jnp.asarray(tri, jnp.bfloat16))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _fixpoint_with_convergence_test(tri: torch.Tensor, max_iters: int = 16) -> torch.Tensor:
+    """The loop the port ran before it dropped its convergence test: stop as soon as
+    alive stops changing (one host read per iteration), capped at min(K, max_iters)."""
+    tri_f = tri.float()
+    alive = torch.ones(tri.shape[:-1], dtype=torch.bool)
+    prev = torch.zeros_like(alive)
+    it = 0
+    while it < min(tri.shape[-1], max_iters) and bool((alive != prev).any()):
+        prev = alive
+        alive = ~(torch.matmul(alive.float().unsqueeze(-2), tri_f).squeeze(-2) > 0.5)
+        it += 1
+    return alive
+
+
+def _suppression(boxes: np.ndarray, scores: np.ndarray, iou_thresh: float = 0.45) -> torch.Tensor:
+    """The class-masked suppression matrix nms_on_pool_merged builds for one pool."""
+    flat = torch.from_numpy(scores).reshape(scores.shape[0], -1)
+    _, idx = nms.top_k_stable(flat, 64)
+    xyxy = box_ops.cxcywh_to_xyxy(torch.from_numpy(boxes))
+    cand, cls = idx // scores.shape[-1], idx % scores.shape[-1]
+    planes = [torch.gather(xyxy[..., i], 1, cand) for i in range(4)]
+    same = cls[..., :, None] == cls[..., None, :]
+    return nms._suppression_matrix(*planes, iou_thresh) & same
+
+
+@pytest.mark.parametrize("seed,ties", CASES)
+def test_capped_fixpoint_equals_the_converging_loop(seed, ties):
+    """Running the capped iterations with no convergence test keeps the same set: once
+    alive equals its previous value, each further iteration computes it again."""
+    tri = _suppression(*_pool(seed + 30, 4, 60, 5, ties))
+    assert int(tri.sum()) > 0
+    calls, iters = nms.suppress_fixpoint.calls, nms.suppress_fixpoint.iterations
+    got = nms.suppress_fixpoint(tri)
+    assert nms.suppress_fixpoint.calls == calls + 1
+    assert nms.suppress_fixpoint.iterations == iters + 16  # min(K = 64, 16), always
+    assert torch.equal(got, _fixpoint_with_convergence_test(tri))
+
+
+@pytest.mark.parametrize("k", [18, 24, 40])
+def test_capped_fixpoint_equals_the_converging_loop_where_the_cap_binds(k):
+    """Suppression chains longer than 16 (each box suppresses only the next): neither
+    loop converges within its cap, and both stop at the same 16th iterate."""
+    tri = torch.zeros((2, k, k), dtype=torch.bool)
+    tri[0, torch.arange(k - 1), torch.arange(1, k)] = True
+    tri[1, torch.arange(k - 2), torch.arange(2, k)] = True  # two interleaved chains
+    got = nms.suppress_fixpoint(tri)
+    assert torch.equal(got, _fixpoint_with_convergence_test(tri))
+    want = jax_nms._suppress_fixpoint(jnp.asarray(tri.numpy(), jnp.bfloat16))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    greedy = torch.arange(k) % 2 == 0
+    assert not torch.equal(got[0], greedy)  # the cap binds: not yet the greedy keep set

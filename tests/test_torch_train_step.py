@@ -160,5 +160,67 @@ def test_uint8_images_equal_float_images():
 
 
 def test_augment_raises():
-    with pytest.raises(NotImplementedError, match="A10"):
+    """StepConfig.augment takes the port's AugConfig and nothing else."""
+    with pytest.raises(TypeError, match="AugConfig"):
         make_train_step(generate_anchors(TINY_ANCHORS), StepConfig(augment=object()))
+
+
+@pytest.mark.parametrize("accum_steps", [1, 2])
+def test_augmented_train_step_matches_jax(monkeypatch, accum_steps):
+    """One augmented step (full recipe) from identical params and batch, the port's draws
+    patched to those the JAX step makes from fold_in(PRNGKey(aug_seed), step): the
+    tolerances of test_train_step_loss_and_clipped_grads_match_jax."""
+    from ssd_object_detection_tpu.ops.augment import AugConfig as JaxAugConfig
+    from ssd_object_detection_tpu_torch.ops import augment
+    from tests.test_torch_augment import jax_draws
+
+    jax_model, params, port = _tiny_setup()
+    ds = SyntheticDetectionDataset(num_images=4, image_size=64, max_gt=4, num_classes=8, seed=9)
+    batch = next(ds.batches(batch_size=4))
+    batch["image"] = np.round(batch["image"] * 255.0).astype(np.uint8)
+    aug_seed, cfg = 3, augment.AugConfig(crop_attempts=50)
+    tx = _capture_grads()
+    jax_step = jax_make_train_step(
+        jax_model.apply, generate_anchors(TINY_ANCHORS), tx,
+        JaxStepConfig(accum_steps=accum_steps, augment=JaxAugConfig(crop_attempts=50), aug_seed=aug_seed))
+    new_state, want = jax_step(jax_create_state(params, tx), batch)
+    want_grads = from_flax_params(jax.tree.map(np.asarray, new_state.opt_state))
+
+    draws = jax_draws(jax.random.fold_in(jax.random.PRNGKey(aug_seed), 0), 4, cfg)
+    seen = []
+
+    def jax_keyed_draws(generator, batch_size, aug_cfg, device):
+        seen.append((batch_size, aug_cfg))
+        return draws
+
+    monkeypatch.setattr(augment, "draw_augment", jax_keyed_draws)
+    state = TrainState(model=port, optimizer=torch.optim.SGD(port.parameters(), lr=0.0),
+                       schedule=lambda step: 0.0)
+    step_fn = make_train_step(generate_anchors(TINY_ANCHORS),
+                              StepConfig(accum_steps=accum_steps, augment=cfg, aug_seed=aug_seed))
+    metrics = step_fn(state, batch)
+    assert seen == [(4, cfg)]  # one draw for the whole batch, before the split
+    for key in want:
+        assert float(metrics[key]) == pytest.approx(float(want[key]), rel=1e-6), key
+    assert float(metrics["num_positive"]) == float(want["num_positive"])
+    for name, p in port.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), want_grads[name].numpy(), rtol=1e-4, atol=5e-8,
+                                   err_msg=name)
+
+
+def test_augmentation_draws_are_keyed_on_the_step():
+    """The generator is reseeded from (aug_seed, step): the same step draws the same
+    augmentation whatever ran before, another step or seed draws another."""
+    from ssd_object_detection_tpu_torch.ops import augment
+    from ssd_object_detection_tpu_torch.train.step import step_seed
+
+    cfg = augment.AugConfig(crop_attempts=50)
+
+    def draws(seed, step):
+        gen = torch.Generator().manual_seed(step_seed(seed, step))
+        return augment.draw_augment(gen, 4, cfg, torch.device("cpu"))
+
+    same = draws(0, 5), draws(0, 5)
+    assert all(torch.equal(a, b) for a, b in zip(*same))
+    assert not torch.equal(draws(0, 5).crop_rects, draws(0, 6).crop_rects)
+    assert not torch.equal(draws(0, 5).crop_rects, draws(1, 5).crop_rects)
