@@ -3,9 +3,9 @@
 
 Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments).
 
-  1. prints the card's name and power limit (nvidia-smi), builds both CUDA kernels from
-     ssd_object_detection_tpu_torch/csrc/ (nvcc, sm_90a, one process per source, all
-     started together) and prints the build times;
+  1. prints the card's name and power limit (nvidia-smi), builds the three CUDA sources
+     of ssd_object_detection_tpu_torch/csrc/ (matcher, conv3x3, int8_conv; nvcc, sm_90a,
+     one process per source, all started together) and prints the build times;
   2. holds the matcher kernel against its plain PyTorch version on the card at the main
      path's shapes (SSD300 anchors D=8,732, B=32, G=100; all-valid, ~10 %-valid,
      zero-valid, duplicated-GT images, the reference's golden bipartite case, a
@@ -21,6 +21,13 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      make_train_step; every launch count is set to 0 just before and read just after,
      and the matcher must have run once per step; losses finite, params changed, and
      build_targets through the kernel equal to the plain matcher on that batch;
+  3b. the same for SSD300-R34 and SSD300-MNV2 (GroupNorm trunks): a float32 forward on
+     the card (TF32 off) within 1e-4 of the output scale of the CPU forward of the same
+     model; warmup + timed steps with the matcher once per step, finite losses, changed
+     params, ms per step; one step with remat against one without from the same params
+     (loss and gradients within the step's own run-to-run spread), the peak memory of
+     each; one profiled step by kernel group (GroupNorm, depthwise convs, layout copies);
+     what F.group_norm launches on a channels-last input;
   4. the Trainer through the CLI on config/synthetic.yml (warmup + 2 epochs): the
      matcher must have run once per micro-batch of the steps the config asks for, and
      it must equal the plain matcher on one of the Trainer's own batches; the run must
@@ -62,6 +69,14 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      version; per trunk shape the tile plan, kernel, plain and cuDNN (F.conv2d + relu +
      max_pool2d) times, TFLOP/s, share of the bound, host time of the wrapper and of one
      tensor-map encode;
+  5b. the int8 conv kernels (csrc/int8_conv.cu): SSD300-VGG16 quantized on one synthetic
+     batch, and each of its 17 int8 conv calls of a batch-32 forward replayed on its real
+     input, then 7 tile-seam shapes (IC and OC off the tiles, K tails, stride 2 on odd and
+     even sizes, VALID 3 -> 1, batch 1): quantize and int32 accumulators bit-equal to the
+     plain version (a float64 conv of the int8 values), dequantized outputs bit-equal at
+     bf16 and float32; per conv the per-call and back-to-back ms, TOP/s, share of the
+     bound, the plain version, im2col + torch._int_mm (cuBLASLt int8) + dequantize, the
+     float path's bf16 cuDNN conv and the wrapper's host us;
   6. NMS on the card against the CPU on random and tie-heavy pools (B=32, N=400, 80
      classes): nms_on_pool, nms_on_pool_merged and its per_anchor_top2 variant give
      bit-equal valid, classes, scores and boxes;
@@ -72,6 +87,12 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      CPU, detect_from_logits on the card equal to the CPU on separated logits; median
      batch latency and img/s, the NMS fixpoint's iterations (its capped count, with no
      host read), a profile by kernel group;
+  7c. the PTQ detect path at full width (5b's quantized SSD300-VGG16, batch 32, fused on
+     the 640x640 canvas): one int8 launch per quantized conv, detections bit-equal to the
+     same model with the plain int8 conv on the card, median latency in turns with the
+     float model, a profile, and a PTQ bundle tier exported, reloaded through
+     from_artifact and equal to the live quantized service (its MB beside the float
+     parameters');
   7b. serving at full width (SSD300-VGG16, 81 classes, bf16, canvas 640x640, batch 32,
      tiers 1, 8, 32): the live DetectorService's median and p90 detect_images latency
      per tier, its host clock by stage and its program's device time (CUDA-graph replay
@@ -79,11 +100,16 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      DetectorService.from_artifact, equal to the live service at every tier and timed the
      same way; the BatchingFrontEnd under 64 threads x 4 single-image requests (img/s,
      p50 and p99 latency, mean dispatched batch);
-  8. the evaluation gate: `python -m ssd_object_detection_tpu_torch.cli.eval_synthetic`
-     at its defaults must reach mAP@0.5 > 0.9;
-  9. prints the kernels line, then as its last line
+  8. the evaluation gates, three `python -m ssd_object_detection_tpu_torch.cli.eval_synthetic`
+     processes at their defaults at once on the card: `--ptq` (SSD300-VGG16 mAP@0.5 > 0.9,
+     the int8 paths with heads float and heads int8 within 0.02 of it), `--variant
+     ssd300_r34` and `--variant ssd300_mnv2` (each > 0.9);
+  9. prints the kernels line (the matcher's launches count phases 3, 3b and 4c, the int8
+     conv's one PTQ detect call of 7c), then as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
+Each phase prints its seconds. The Keras .h5 import is host code and the card may lack
+h5py, so it is not run here (tests/test_torch_import_keras.py covers it on the CPU).
 TF32 is off for the whole run (cuDNN and matmul), so float32 work is full float32; the
 train step and the detect path compute in bf16 by configuration. Any failure raises and
 exits non-zero with no result line; so does a machine without a CUDA device or a
@@ -112,6 +138,9 @@ MATCHER_SOURCE = f"{PACKAGE}/csrc/matcher.cu"
 MATCHER_REPLACES = "ssd_object_detection_tpu/ops/pallas_matcher.py:204"
 CONV_SOURCE = f"{PACKAGE}/csrc/conv3x3.cu"
 CONV_REPLACES = "ssd_object_detection_tpu/ops/pallas_conv.py:134"
+INT8_SOURCE = f"{PACKAGE}/csrc/int8_conv.cu"
+INT8_REPLACES = "ssd_object_detection_tpu/ops/quant.py:192 (XLA int8 conv; no Pallas kernel)"
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores, NVIDIA data sheet
 # (layer, H = W, IC = OC, pool): the VGG trunk convolutions the fused op stands for.
 CONV_SHAPES = (("block1_conv2", 300, 64, True), ("block2_conv2", 150, 128, True),
                ("block3_conv2", 75, 256, False))
@@ -132,6 +161,17 @@ CONV_EDGES = (
     ("odd_channels", 1, 7, 9, 3, 5, False, False),
     ("ic512_streamed64", 1, 10, 20, 512, 64, True, False),  # one tile of 32 chunks
     ("ic512_pingpong", 8, 64, 64, 512, 128, True, False),  # 352 tiles of 32 chunks, 5 stages
+)
+# (name, B, H, W, IC, OC, kernel, stride, padding): the seams of the int8 conv kernel's
+# tiles (csrc/int8_conv.cu: 128 pixels x 128 channels a CTA, 64-channel K chunks).
+INT8_EDGES = (
+    ("ic40_oc72_stride2_even", 2, 16, 16, 40, 72, 3, 2, "SAME"),  # K and OC tails, pads (0, 1)
+    ("ic96_oc200", 2, 17, 19, 96, 200, 3, 1, "SAME"),  # a half K chunk, a second OC tile
+    ("ic3_oc5", 1, 7, 9, 3, 5, 3, 1, "SAME"),
+    ("stride2_odd", 2, 19, 19, 512, 256, 3, 2, "SAME"),  # pads (1, 1)
+    ("valid_3_to_1", 4, 3, 3, 256, 256, 3, 1, "VALID"),
+    ("batch1_pointwise", 1, 19, 19, 1024, 1024, 1, 1, "SAME"),
+    ("m_tail", 3, 5, 7, 128, 136, 3, 1, "SAME"),  # 105 pixels: one partial pixel tile
 )
 
 
@@ -438,7 +478,7 @@ def main() -> None:
     import numpy as np
 
     from ssd_object_detection_tpu_torch.models.ssd import SSD, SSD300_SPEC_MODEL
-    from ssd_object_detection_tpu_torch.ops import cuda_conv, cuda_matcher, nms
+    from ssd_object_detection_tpu_torch.ops import cuda_conv, cuda_int8, cuda_matcher, nms
     from ssd_object_detection_tpu_torch.ops.anchors import SSD512_SPEC, generate_anchors
     from ssd_object_detection_tpu_torch.ops.boxes import encode_boxes
     from ssd_object_detection_tpu_torch.ops.matching import build_targets, match_anchors
@@ -465,14 +505,18 @@ def main() -> None:
         t = time.time()
         return module.build(), time.time() - t
 
-    with ThreadPoolExecutor(2) as pool:  # one nvcc process per source, all at once
-        builds = list(pool.map(timed_build, (cuda_matcher, cuda_conv)))
+    with ThreadPoolExecutor(3) as pool:  # one nvcc process per source, all at once
+        builds = list(pool.map(timed_build, (cuda_matcher, cuda_conv, cuda_int8)))
     for path, seconds in builds:
         print(f"built {path.name} in {seconds:.1f} s")
 
     anchors300 = generate_anchors()
     anchors512 = generate_anchors(SSD512_SPEC)
+    print(f"phase 1 (card, builds): {time.time() - started:.1f} s")
+    t_phase = time.time()
     matcher = matcher_phase(torch, np, dev, anchors300, anchors512)
+    print(f"phase 2 (matcher): {time.time() - t_phase:.1f} s")
+    t_phase = time.time()
 
     # ---- 3. the main path: full-width SSD300 train steps --------------------------
     batch_size, warmup_steps, timed_steps = 32, 2, 5
@@ -526,6 +570,11 @@ def main() -> None:
     print(f"build_targets on the train batch: kernel == plain ({int(t_mask.sum())} positives)")
     profile_step(torch, lambda: train_step(state, host_batches[0]), "one train step",
                  TRAIN_GROUPS)
+    del model, state, watched
+    torch.cuda.empty_cache()
+    print(f"phase 3 (SSD300-VGG16 train steps): {time.time() - t_phase:.1f} s")
+    family_launches = timed("3b (R34 and MNV2 train steps)", family_train_phase, torch, np, dev, smi)
+    t_phase = time.time()
 
     # ---- 4. the Trainer through the CLI ---------------------------------------------
     from ssd_object_detection_tpu_torch.cli import train as cli_train
@@ -560,13 +609,17 @@ def main() -> None:
           f"steps, matcher launches {cli_launches}, final loss {final_loss:.6f}; kernel == plain "
           f"on a Trainer batch (B={g[0].shape[0]} G={g[0].shape[1]} D={a.shape[0]})")
     cli_eval_phase(trainer)
-    aug_launches = production_phase(torch, np, dev, med, card=smi)
+    print(f"phase 4 (Trainer through the CLI, cli.eval): {time.time() - t_phase:.1f} s")
+    aug_launches = timed("4b + 4c (production Trainer)", production_phase, torch, np, dev, med,
+                         card=smi)
 
-    conv = conv_phase(torch, np, dev)
-    nms_phase(torch, np, nms, dev)
-    detect_phase(torch, np, dev, anchors300)
-    serve_phase(torch, np, dev, smi)
-    eval_gate_phase()
+    conv = timed("5 (conv3x3 op)", conv_phase, torch, np, dev)
+    int8 = timed("5b (int8 conv kernels)", int8_phase, torch, np, dev, smi)
+    timed("6 (NMS)", nms_phase, torch, np, nms, dev)
+    timed("7 (detect)", detect_phase, torch, np, dev, anchors300)
+    int8["launches"] = timed("7c (PTQ detect)", ptq_detect_phase, torch, np, dev, anchors300, smi)
+    timed("7b (serving)", serve_phase, torch, np, dev, smi)
+    timed("8 (mAP gates)", eval_gate_phase)
 
     # ---- 9. result lines ----------------------------------------------------------
     print(f"all phases in {time.time() - started:.1f} s")
@@ -575,7 +628,7 @@ def main() -> None:
         "route": "cuda",
         "source": MATCHER_SOURCE,
         "replaces": MATCHER_REPLACES,
-        "launches": launches + aug_launches,
+        "launches": launches + aug_launches + family_launches,
         **matcher,
         "library_ms": None,
     }, {
@@ -584,8 +637,22 @@ def main() -> None:
         "source": CONV_SOURCE,
         "replaces": CONV_REPLACES,
         **conv,
+    }, {
+        "name": "int8_conv",
+        "route": "cuda",
+        "source": INT8_SOURCE,
+        "replaces": INT8_REPLACES,
+        **int8,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
+
+
+def timed(name: str, phase, *args, **kwargs):
+    """Run one phase and print its seconds."""
+    t = time.time()
+    result = phase(*args, **kwargs)
+    print(f"phase {name}: {time.time() - t:.1f} s")
+    return result
 
 
 def matcher_phase(torch, np, dev, anchors300, anchors512) -> dict:
@@ -1688,24 +1755,424 @@ def serve_phase(torch, np, dev, card: str, variant: str = "ssd300",
     torch.cuda.empty_cache()
 
 
-def eval_gate_phase() -> None:
-    """8. The synthetic mAP gate at the JAX tool's budget, in its own process."""
-    t = time.time()
-    proc = subprocess.run(
-        [sys.executable, "-m", f"{PACKAGE}.cli.eval_synthetic"], cwd=ROOT,
-        env=dict(os.environ, PYTHONPATH=ROOT), capture_output=True, text=True, timeout=900,
+# torch.profiler kernel-name fragments for the R34 and MNV2 train steps, first match wins
+FAMILY_GROUPS = (
+    ("host-to-device copy", ("memcpy htod",)),
+    ("matcher", ("match_kernel",)),
+    ("group norm", ("group_norm", "groupnorm", "rowwisemoments", "computefusedparams",
+                    "compute_internal_gradients", "gamma_beta", "welford")),
+    ("depthwise conv", ("depthwise", "dwconv", "dgrad2d_grouped", "grouped")),
+    ("max-pool", ("max_pool",)),
+    ("optimizer", ("multi_tensor", "adam")),
+    ("sort (loss mining)", ("sort", "radix")),
+    ("layout / dtype copy", ("nchwtonhwc", "nhwctonchw", "copy_kernel", "direct_copy")),
+    ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "gemm", "dgrad", "wgrad", "nhwc", "sm90")),
+)
+
+
+def relative_l2(torch, got, want) -> float:
+    """||got - want|| / ||want|| over lists of tensors, in float32."""
+    num = sum(float(torch.linalg.vector_norm((a.float() - b.float()))) ** 2 for a, b in zip(got, want))
+    den = sum(float(torch.linalg.vector_norm(b.float())) ** 2 for b in want)
+    return math.sqrt(num / max(den, 1e-30))
+
+
+def family_train_phase(torch, np, dev, card: str) -> int:
+    """3b. SSD300-R34 and SSD300-MNV2 train steps at full width (81 classes, bf16, batch
+    32, max_gt 100, uint8 synthetic images, reference loss): a float32 forward on the card
+    against the CPU's; warmup + timed steps with the matcher once per step, finite losses,
+    changed params; remat against no remat from the same params; peak memory of each;
+    one profiled step; GroupNorm on a channels-last input. Returns matcher launches."""
+    from torch import nn
+
+    from ssd_object_detection_tpu_torch.data.synthetic import SyntheticDetectionDataset
+    from ssd_object_detection_tpu_torch.models.resnet import group_norm
+    from ssd_object_detection_tpu_torch.models.ssd import MODEL_SPECS, SSD
+    from ssd_object_detection_tpu_torch.ops import cuda_matcher
+    from ssd_object_detection_tpu_torch.ops.anchors import generate_anchors
+    from ssd_object_detection_tpu_torch.train.optim import exponential_decay, make_optimizer
+    from ssd_object_detection_tpu_torch.train.step import (
+        StepConfig, TrainState, create_train_state, make_train_step,
     )
-    lines = proc.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        print(f"  eval_synthetic: {line}")
-    if proc.returncode != 0 or not lines:
-        fail(f"eval_synthetic exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    result = json.loads(lines[-1])
-    print(f"eval gate (cli.eval_synthetic defaults: {result['train']}): mAP {result['mAP']:.4f}, "
-          f"mAP@0.5 {result['mAP@0.5']:.4f}, train {result['train_seconds']:.1f} s, "
-          f"whole run {time.time() - t:.1f} s on {result['device']}")
-    if not result["mAP@0.5"] > 0.9:
-        fail(f"eval gate: mAP@0.5 {result['mAP@0.5']:.4f} is not above 0.9")
+
+    batch_size, warmup_steps, timed_steps = 32, 2, 5
+    ds = SyntheticDetectionDataset(num_images=2 * batch_size, image_size=300, max_gt=100,
+                                   num_classes=8, seed=0)
+    batches = []
+    for b in ds.batches(batch_size):
+        b["image"] = np.round(b["image"] * 255.0).astype(np.uint8)
+        batches.append(b)
+    train_step = make_train_step(generate_anchors(), StepConfig())
+    total_launches = 0
+    for variant in ("ssd300_r34", "ssd300_mnv2"):
+        spec = MODEL_SPECS[variant]
+        # float32 forward: the card (TF32 off) against the CPU, same port model
+        model32 = SSD(num_classes=81, spec=spec).init_weights(torch.Generator().manual_seed(0))
+        x = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (2, 300, 300, 3)).astype(np.float32))
+        with torch.no_grad():
+            want = model32(x)
+            got = model32.to(dev)(x.to(dev))
+        err = max(float((g.cpu() - w).abs().max() / w.abs().max()) for g, w in zip(got, want))
+        if not err <= 1e-4:
+            fail(f"{variant} float32 forward: card and CPU differ by {err:.3e} of the output scale")
+        del model32, got, want
+
+        model = SSD(num_classes=81, spec=spec, dtype=torch.bfloat16)
+        model = model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+        state = create_train_state(model, make_optimizer("adam", model.parameters()),
+                                   exponential_decay(1e-3, 100, 0.99))
+        trunk_first = next(n for n, _ in model.named_parameters())
+        watched = {n: p.detach().clone() for n, p in model.named_parameters()
+                   if n in (trunk_first, "extra1_conv0.weight", "conf_head0.weight")}
+        cuda_matcher.match_anchors_cuda.launches = 0
+        step_ms, losses = [], []
+        for i in range(warmup_steps + timed_steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = train_step(state, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            if i >= warmup_steps:
+                step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(metrics["loss"]))
+        launches = cuda_matcher.match_anchors_cuda.launches
+        steps = warmup_steps + timed_steps
+        if launches != steps:
+            fail(f"{variant}: {steps} train steps launched the matcher kernel {launches} times")
+        total_launches += launches
+        if not all(math.isfinite(v) for v in losses):
+            fail(f"{variant}: non-finite loss in the train steps: {losses}")
+        for n, before in watched.items():
+            if torch.equal(before, dict(model.named_parameters())[n].detach()):
+                fail(f"{variant}: param {n} did not change over {steps} train steps")
+        med = statistics.median(step_ms)
+
+        # remat: one step from the same params (lr 0, so nothing moves), against the
+        # step's own run-to-run spread (cuDNN's backward sums with atomics)
+        probe = TrainState(model=model, optimizer=torch.optim.SGD(model.parameters(), lr=0.0),
+                           schedule=lambda step: 0.0)
+
+        def one_step(remat: bool):
+            model.remat = remat
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            m = train_step(probe, batches[0])
+            torch.cuda.synchronize()
+            return (float(m["loss"]), [p.grad.detach().clone() for p in model.parameters()],
+                    torch.cuda.max_memory_allocated())
+
+        loss_a, grads_a, peak_plain = one_step(False)
+        loss_b, grads_b, _ = one_step(False)
+        loss_r, grads_r, peak_remat = one_step(True)
+        t = time.perf_counter()
+        one_step(True)
+        remat_ms = (time.perf_counter() - t) * 1e3
+        model.remat = False
+        spread, remat_diff = relative_l2(torch, grads_b, grads_a), relative_l2(torch, grads_r, grads_a)
+        if abs(loss_r - loss_a) > abs(loss_b - loss_a) + 1e-6 * abs(loss_a) \
+                or remat_diff > 2 * spread + 1e-3:
+            fail(f"{variant} remat: loss {loss_r} vs {loss_a} (spread {abs(loss_b - loss_a)}), "
+                 f"gradients {remat_diff:.3e} relative L2 (spread {spread:.3e})")
+        del grads_a, grads_b, grads_r
+        print(f"train step {variant} bf16 batch {batch_size} max_gt 100 [{card}]: losses "
+              f"{[round(v, 4) for v in losses]}; median {med:.2f} ms over {timed_steps} steps = "
+              f"{batch_size / med * 1e3:.1f} img/s; matcher launches {launches}; float32 forward "
+              f"card vs CPU {err:.2e} of the output scale")
+        print(f"remat {variant}: loss {loss_r:.6f} (no remat {loss_a:.6f}, again {loss_b:.6f}), "
+              f"gradients {remat_diff:.3e} relative L2 from no remat (no remat twice: "
+              f"{spread:.3e}); peak memory of one step {peak_plain / 2**30:.3f} GiB without, "
+              f"{peak_remat / 2**30:.3f} GiB with remat; one remat step {remat_ms:.2f} ms")
+        profile_step(torch, lambda: train_step(state, batches[0]), f"one {variant} train step",
+                     FAMILY_GROUPS)
+        del model, state, probe
+        torch.cuda.empty_cache()
+
+    # GroupNorm on a channels-last bf16 input (the trunks' layout): what it launches
+    norm = nn.GroupNorm(32, 64, eps=1e-6).to(dev)
+    x = torch.randn(32, 64, 150, 150, device=dev).to(torch.bfloat16, memory_format=torch.channels_last)
+    y = group_norm(x, norm, torch.bfloat16)
+    kernels = device_kernels(torch, lambda: group_norm(x, norm, torch.bfloat16))
+    print(f"group_norm on a channels-last bf16 (32, 64, 150, 150) input [{card}]: output "
+          f"channels-last {y.is_contiguous(memory_format=torch.channels_last)}; kernels "
+          + "; ".join(f"{name[:70]} {ms:.3f} ms" for ms, _, name in sorted(kernels, reverse=True)))
+    return total_launches
+
+
+def int8_inputs(torch, np, dev):
+    """SSD300-VGG16 (81 classes, bf16, seed 0) quantized on one synthetic batch, and the
+    arguments of each int8 conv call of one forward at batch 32: [(name, args)]."""
+    from ssd_object_detection_tpu_torch.data.synthetic import SyntheticDetectionDataset
+    from ssd_object_detection_tpu_torch.models.ssd import SSD, SSD300_SPEC_MODEL
+    from ssd_object_detection_tpu_torch.ops import quant
+
+    model = SSD(num_classes=81, spec=SSD300_SPEC_MODEL, dtype=torch.bfloat16)
+    model = model.init_weights(torch.Generator().manual_seed(0)).to(dev)
+    ds = SyntheticDetectionDataset(num_images=32, image_size=300, max_gt=8, num_classes=8, seed=3)
+    images = next(ds.batches(32))["image"]
+    x = torch.from_numpy((images - 0.5) * 2.0).float().to(dev)
+    q_model, qspec = quant.quantize_ssd(model, [x])
+    calls, real = [], quant.int8_conv
+
+    def record(*args):
+        calls.append(args)
+        return real(*args)
+
+    quant.int8_conv = record
+    try:
+        with torch.no_grad():
+            q_model(x)
+    finally:
+        quant.int8_conv = real
+    torch.cuda.synchronize()
+    return list(zip(qspec, calls)), model, q_model, x
+
+
+def int8_bound(x, w_q, out) -> tuple:
+    """Least time for one int8 conv: x (compute dtype) read once, the int8 weights and the
+    scales and bias read once, the output written once, over the memory rate; the
+    2*B*Ho*Wo*KH*KW*IC*OC int8 operations over the dense int8 rate."""
+    batch, ho, wo, oc = out.shape
+    _, kh, kw, ic = w_q.shape
+    ops = 2 * batch * ho * wo * kh * kw * ic * oc
+    nbytes = (x.numel() * x.element_size() + w_q.numel() + 8 * oc
+              + out.numel() * out.element_size())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), ops
+
+
+def int8_phase(torch, np, dev, card: str) -> dict:
+    """5b. The int8 kernels against their plain version on the card at SSD300-VGG16's 17
+    eligible conv calls at batch 32 (their real inputs) and at the tile seams: quantize
+    and int32 accumulators bit-equal, dequantized output bit-equal at bf16 and float32;
+    per shape the kernel's per-call and back-to-back ms, the plain version, im2col +
+    torch._int_mm (cuBLASLt int8) + dequantize, the float path's bf16 cuDNN conv, the
+    bound and the wrapper's host us."""
+    import torch.nn.functional as F
+
+    from ssd_object_detection_tpu_torch.models.vgg import float_conv, same_padding
+    from ssd_object_detection_tpu_torch.ops import cuda_int8
+
+    calls, model, q_model, _ = int8_inputs(torch, np, dev)
+    if len(calls) != 17:
+        fail(f"SSD300-VGG16 ran {len(calls)} int8 convs, expected 17")
+
+    def check(name, x, w_q, w_scale, bias, x_scale, stride, pads) -> float:
+        ic = x.shape[-1]
+        xq = cuda_int8.quantize_cuda(x, x_scale)
+        want_xq = cuda_int8.quantize_plain(x, x_scale)
+        if not (torch.equal(xq[..., :ic], want_xq) and not bool(xq[..., ic:].any())):
+            fail(f"int8 {name}: quantize kernel != plain in {int((xq[..., :ic] != want_xq).sum())} values")
+        packed = cuda_int8.pack_weights(w_q)
+        acc = cuda_int8.conv_cuda(xq, packed, ic, stride, pads)
+        want_acc = cuda_int8.accumulate_plain(want_xq, w_q, stride, pads)
+        if not torch.equal(acc, want_acc):
+            fail(f"int8 {name}: int32 accumulators differ in {int((acc != want_acc).sum())} of {acc.numel()}")
+        err = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            got = (cuda_int8.int8_conv_cuda(x.to(dtype), w_q, w_scale, bias, x_scale, stride, pads)
+                   if dtype == x.dtype else
+                   cuda_int8.conv_cuda(xq, packed, ic, stride, pads, dtype, w_scale, x_scale, bias))
+            want = cuda_int8.dequantize_plain(want_acc, x_scale, w_scale, bias, dtype)
+            err = max(err, float((got.float() - want.float()).abs().max()))
+            if not torch.equal(got, want):
+                fail(f"int8 {name} {dtype}: dequantized output differs from plain by {err:.3e}")
+        print(f"int8 {name} x {tuple(x.shape)} {x.dtype} w {tuple(w_q.shape)} stride {stride} pads "
+              f"{pads}: quantize, int32 accumulators, bf16 and float32 outputs bit-equal to plain")
+        return err
+
+    cuda_int8.int8_conv_cuda.launches = 0
+    max_abs_err = 0.0
+    for path, args in calls:
+        max_abs_err = max(max_abs_err, check(path, *args))
+    g = torch.Generator().manual_seed(5)
+    for name, b, h, w, ic, oc, k, s, padding in INT8_EDGES:
+        x = (torch.randn(b, h, w, ic, generator=g) * 3).to(torch.bfloat16).to(dev)
+        w_q = torch.randint(-127, 128, (oc, k, k, ic), generator=g, dtype=torch.int8).to(dev)
+        w_scale = (torch.rand(oc, generator=g) * 0.01 + 1e-4).to(dev)
+        bias = torch.randn(oc, generator=g).to(dev) if oc % 2 else None
+        pads = (0, 0, 0, 0) if padding == "VALID" else (*same_padding(h, k, s), *same_padding(w, k, s))
+        max_abs_err = max(max_abs_err, check(name, x, w_q, w_scale, bias,
+                                             torch.tensor(3.0 / 127, device=dev), (s, s), pads))
+    checked = cuda_int8.int8_conv_cuda.launches
+
+    rows = []
+    for path, (x, w_q, w_scale, bias, x_scale, stride, pads) in calls:
+        def kernel():
+            return cuda_int8.int8_conv_cuda(x, w_q, w_scale, bias, x_scale, stride, pads)
+
+        out = kernel()
+        per_call = cuda_ms(torch, kernel, warmup=3, iters=10)
+        back_to_back = stream_ms(torch, kernel, iters=10)
+        host_us = enqueue_us(torch, kernel, iters=20)
+        plain_ms = cuda_ms(torch, lambda: cuda_int8.int8_conv_plain(x, w_q, w_scale, bias, x_scale,
+                                                                     stride, pads), warmup=1, iters=3)
+        batch, ho, wo, oc = out.shape
+        _, kh, kw, ic = w_q.shape
+        w_cols = w_q.reshape(oc, -1).t()  # (K, OC), column-major: cuBLASLt's int8 layout
+        top, bottom, left, right = pads
+
+        def library():  # quantize, im2col, cuBLASLt int8 GEMM, dequantize
+            xq = cuda_int8.quantize_plain(x, x_scale)
+            cols = F.pad(xq, (0, 0, left, right, top, bottom)).unfold(1, kh, stride[0]).unfold(2, kw, stride[1])
+            acc = torch._int_mm(cols.permute(0, 1, 2, 4, 5, 3).reshape(-1, kh * kw * ic), w_cols)
+            return cuda_int8.dequantize_plain(acc.view(batch, ho, wo, oc), x_scale, w_scale, bias,
+                                              x.dtype)
+
+        if not torch.equal(library(), out):
+            fail(f"int8 {path}: im2col + torch._int_mm disagrees with the kernel")
+        library_ms = cuda_ms(torch, library, warmup=2, iters=10)
+        conv = model.get_submodule(path.replace("/", "."))
+        x_nchw = x.permute(0, 3, 1, 2)
+        cudnn_ms = cuda_ms(torch, lambda: float_conv(x_nchw, conv, pads, torch.bfloat16),
+                           warmup=2, iters=10)
+        bound_ms, bound_by, ops = int8_bound(x, w_q, out)
+        rows.append({"shape": path, "ms": per_call, "back_to_back_ms": back_to_back,
+                     "plain_ms": plain_ms, "library_ms": library_ms, "cudnn_bf16_ms": cudnn_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by, "host_us": host_us})
+        print(f"int8 timing {path} {tuple(x.shape)}->{tuple(out.shape)} k{kh} s{stride[0]} "
+              f"[{card}]: kernel {per_call:.4f} ms per call ({back_to_back:.4f} back to back, "
+              f"{ops / back_to_back / 1e9:.1f} TOP/s), {100 * bound_ms / back_to_back:.1f} % of "
+              f"the {bound_ms:.4f} ms bound ({bound_by}); plain {plain_ms:.3f} ms; im2col + "
+              f"_int_mm {library_ms:.4f} ms; bf16 cuDNN conv {cudnn_ms:.4f} ms; host per call "
+              f"{host_us:.1f} us")
+        del out
+    totals = {key: sum(r[key] for r in rows) for key in
+              ("ms", "back_to_back_ms", "plain_ms", "library_ms", "cudnn_bf16_ms", "bound_ms")}
+    print(f"int8 convs of one SSD300-VGG16 forward at batch 32, summed [{card}]: kernel "
+          f"{totals['ms']:.3f} ms per call ({totals['back_to_back_ms']:.3f} back to back), bound "
+          f"{totals['bound_ms']:.3f} ms, plain {totals['plain_ms']:.1f} ms, im2col + _int_mm "
+          f"{totals['library_ms']:.3f} ms, bf16 cuDNN {totals['cudnn_bf16_ms']:.3f} ms; "
+          f"{checked} checked launches")
+    del calls, model, q_model
+    torch.cuda.empty_cache()
+    return {"launches": 0, "max_abs_err": max_abs_err, "ms": totals["ms"],
+            "plain_ms": totals["plain_ms"], "bound_ms": totals["bound_ms"],
+            # the side that holds the larger part of the summed bound
+            "bound_by": max(("operations", "bytes"), key=lambda side: sum(
+                r["bound_ms"] for r in rows if r["bound_by"] == side)),
+            "library_ms": totals["library_ms"], "shapes": rows}
+
+
+def ptq_detect_phase(torch, np, dev, anchors300, card: str) -> int:
+    """7c. The PTQ detect path at full width (SSD300-VGG16 quantized as in 5b, batch 32,
+    fused on the 640x640 canvas): one int8 launch per quantized conv, detections bit-equal
+    to the same model with the plain int8 conv on the card, median latency in turns with
+    the float model, and one PTQ bundle tier exported, reloaded and equal to the live
+    quantized service. Returns the int8 launches of one call."""
+    from ssd_object_detection_tpu_torch.eval import serve
+    from ssd_object_detection_tpu_torch.eval.predict import make_fused_predict_fn
+    from ssd_object_detection_tpu_torch.ops import cuda_int8, quant
+    from ssd_object_detection_tpu_torch.ops.preprocess import pack_canvas
+
+    _, model, q_model, _ = int8_inputs(torch, np, dev)
+    n_quantized = quant.quantized_convs(q_model)
+    batch = 32
+    canvas_np, sizes_np = pack_canvas(mixed_images(np, batch), (640, 640))
+    canvas, sizes = torch.from_numpy(canvas_np).to(dev), torch.from_numpy(sizes_np).to(dev)
+    fused_q = make_fused_predict_fn(q_model, anchors300)
+    fused_f = make_fused_predict_fn(model, anchors300)
+    fused_q(canvas, sizes)
+    torch.cuda.synchronize()
+
+    cuda_int8.int8_conv_cuda.launches = 0
+    det = fused_q(canvas, sizes)
+    torch.cuda.synchronize()
+    launches = cuda_int8.int8_conv_cuda.launches
+    if launches != n_quantized:
+        fail(f"PTQ detect: {n_quantized} quantized convs launched the int8 kernels {launches} times")
+    real = quant.int8_conv
+    quant.int8_conv = cuda_int8.int8_conv_plain  # the plain version, on the card
+    try:
+        det_plain = fused_q(canvas, sizes)
+    finally:
+        quant.int8_conv = real
+    for field, a, b in zip(det._fields, det, det_plain):
+        if not torch.equal(a, b):
+            fail(f"PTQ detect: {field} differs from the plain int8 path in {int((a != b).sum())} entries")
+    turns = [cuda_ms(torch, lambda f=f: f(canvas, sizes), warmup=3, iters=20)
+             for f in (fused_f, fused_q, fused_q, fused_f)]
+    print(f"PTQ detect SSD300-VGG16 batch {batch}, fused 640x640 canvas [{card}]: {launches} int8 "
+          f"launches for {n_quantized} quantized convs; detections bit-equal to the plain int8 "
+          f"conv on the card ({int(det.valid.sum())} valid); median ms in turns float, int8, int8, "
+          f"float: {', '.join(f'{ms:.3f}' for ms in turns)} = int8 "
+          f"{2 * batch / (turns[1] + turns[2]) * 1e3:.1f} img/s, float "
+          f"{2 * batch / (turns[0] + turns[3]) * 1e3:.1f} img/s")
+    profile_step(torch, lambda: fused_q(canvas, sizes), "one PTQ fused predict call (batch 32)",
+                 (("int8 conv (csrc/int8_conv.cu)", ("quantize_kernel", "conv_kernel<")),)
+                 + PREDICT_GROUPS)
+
+    tier = 8
+    kw = dict(image_size=300, canvas_hw=(640, 640), score_thresh=0.01)
+    t = time.time()
+    bundle = serve.export_fused_detector_bundle(q_model, anchors300, (tier,), **kw)
+    export_s = time.time() - t
+    art = serve.DetectorService.from_artifact(bundle, device=dev)
+    live = serve.DetectorService(q_model, anchors300, batch_size=tier, **kw)
+    requests = mixed_images(np, tier, seed=11)
+    got, want = art.detect_images(requests), live.detect_images(requests)
+    if json.dumps(got) != json.dumps(want) or serve.artifact_precision(bundle) != "int8-ptq":
+        fail("PTQ bundle: the artifact's detections differ from the live quantized service's")
+    float_mb = sum(p.numel() * 4 for p in model.parameters()) / 1e6
+    print(f"PTQ bundle tier {tier} [{card}]: {len(bundle) / 1e6:.1f} MB (float parameters "
+          f"{float_mb:.1f} MB), exported in {export_s:.1f} s, precision "
+          f"{serve.artifact_precision(bundle)}; {sum(len(d) for d in got)} detections on {tier} "
+          f"images equal to the live quantized service's")
+    del art, live, bundle, model, q_model
+    torch.cuda.empty_cache()
+    return launches
+
+
+
+def eval_gate_phase() -> None:
+    """8. The synthetic mAP gates at the JAX tool's budget, each in its own process, the
+    three at once on the card: SSD300-VGG16 with --ptq (float mAP@0.5 > 0.9, both int8
+    drops <= 0.02), SSD300-R34 and SSD300-MNV2 (> 0.9)."""
+    runs = {"ssd300 --ptq": ["--ptq"], "ssd300_r34": ["--variant", "ssd300_r34"],
+            "ssd300_mnv2": ["--variant", "ssd300_mnv2"]}
+    t = time.time()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_gates_") as logs:
+        procs = {}
+        try:
+            for name, flags in runs.items():
+                out = open(os.path.join(logs, f"{len(procs)}.out"), "w+")
+                err = open(os.path.join(logs, f"{len(procs)}.err"), "w+")
+                procs[name] = (subprocess.Popen(
+                    [sys.executable, "-m", f"{PACKAGE}.cli.eval_synthetic", *flags], cwd=ROOT,
+                    env=dict(os.environ, PYTHONPATH=ROOT), stdout=out, stderr=err, text=True), out, err)
+            for name, (proc, out, err) in procs.items():
+                proc.wait(timeout=900)
+        finally:
+            for proc, out, err in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for name, (proc, out, err) in procs.items():
+            out.seek(0)
+            err.seek(0)
+            lines = out.read().strip().splitlines()
+            stderr = err.read()
+            out.close()
+            err.close()
+            for line in lines[:-1]:
+                print(f"  eval_synthetic {name}: {line}")
+            if proc.returncode != 0 or not lines:
+                fail(f"eval_synthetic {name} exited {proc.returncode}:\n{stderr[-4000:]}")
+            result = json.loads(lines[-1])
+            print(f"eval gate {name} (cli.eval_synthetic defaults: {result['train']}): mAP "
+                  f"{result['mAP']:.4f}, mAP@0.5 {result['mAP@0.5']:.4f}, train "
+                  f"{result['train_seconds']:.1f} s on {result['device']}")
+            if not result["mAP@0.5"] > 0.9:
+                fail(f"eval gate {name}: mAP@0.5 {result['mAP@0.5']:.4f} is not above 0.9")
+            for key in ("ptq", "ptq_heads"):
+                if key in result:
+                    gate = result[key]
+                    print(f"eval gate {name} {key}: mAP@0.5 {gate['metrics']['mAP@0.5']:.4f}, drop "
+                          f"{gate['mAP50_drop_vs_float']:.4f} against float ({gate['gate']})")
+                    if not gate["pass"]:
+                        fail(f"eval gate {name} {key}: drop {gate['mAP50_drop_vs_float']:.4f} > 0.02")
+            if "--ptq" in runs[name] and not {"ptq", "ptq_heads"} <= set(result):
+                fail(f"eval gate {name}: no PTQ results")
+    print(f"eval gates, three processes at once on the card: {time.time() - t:.1f} s")
 
 
 if __name__ == "__main__":

@@ -5,8 +5,10 @@ Counterpart of tools/eval.py: COCO-style mAP of exported weights (either package
 config's: synthetic (64 images, or `mini_batch.num_data`, in batches of 8) or COCO
 val through the decode pipeline (batches of `train.batch_size`). Flags
 `--max-batches`, `--score-thresh` (0.01), `--iou-thresh` (0.45) as in the JAX tool;
-`--device` (default cuda; raises without a GPU) is the one it lacks.
-`--data-parallel N > 1` (ROADMAP A12) and `--ptq` (A13) are not ported and raise.
+`--device` (default cuda; raises without a GPU) is the one it lacks. `--ptq` evaluates
+through the int8 path, calibrated on `--calib-batches` (4) val batches of
+`train.batch_size` (`--ptq-heads` quantizes the heads too).
+`--data-parallel N > 1` (ROADMAP A12) is not ported and raises.
 """
 
 from __future__ import annotations
@@ -16,7 +18,9 @@ import json
 import logging
 from typing import Dict, Optional, Sequence
 
-from ssd_object_detection_tpu_torch.cli.common import build_model
+from ssd_object_detection_tpu_torch.cli.common import (
+    add_ptq_flags, build_model, calibration_batches, quantize_for_serving,
+)
 from ssd_object_detection_tpu_torch.config import load_config
 from ssd_object_detection_tpu_torch.data.coco import open_split
 from ssd_object_detection_tpu_torch.data.pipeline import CocoPipeline, PipelineConfig
@@ -36,18 +40,19 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, float]:
     parser.add_argument("--iou-thresh", type=float, default=0.45)
     parser.add_argument("--data-parallel", type=int, default=0, metavar="N",
                         help="not ported yet (ROADMAP A12)")
-    parser.add_argument("--ptq", action="store_true", help="not ported yet (ROADMAP A13)")
+    add_ptq_flags(parser, calib_batches=True)
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     args = parser.parse_args(argv)
     if args.data_parallel > 1:
         raise NotImplementedError("--data-parallel: sharded evaluation is not ported yet (ROADMAP A12)")
-    if args.ptq:
-        raise NotImplementedError("--ptq: int8 post-training quantization is not ported yet (ROADMAP A13)")
 
     cfg = load_config(args.config)
     device = resolve_device(args.device)
     eval_batch_size = 8 if cfg.data.dataset == "synthetic" else cfg.model.train.batch_size
     model, spec = build_model(cfg, args.weights, device)
+    if args.ptq:
+        calib = calibration_batches(cfg, spec, args.calib_batches, cfg.model.train.batch_size)
+        model = quantize_for_serving(model, calib, args.ptq_heads)
 
     predict = make_predict_fn(
         model, generate_anchors(spec.anchor_spec), variances=cfg.model.loss.variances,

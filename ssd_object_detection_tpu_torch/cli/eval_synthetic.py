@@ -1,8 +1,8 @@
 """mAP gate: train an SSD on the hermetic synthetic dataset, evaluate COCO-style mAP on a
 held-out split, and print one JSON line with the gate `mAP@0.5 > --gate`.
 
-Counterpart of tools/eval_synthetic.py (VGG variants only), with the same flags,
-defaults and recipe: 256 train and 64 val synthetic images (seeds 0 and 999), max_gt 8,
+Counterpart of tools/eval_synthetic.py (every variant of models/ssd.py::MODEL_SPECS),
+with the same flags, defaults and recipe: 256 train and 64 val synthetic images (seeds 0 and 999), max_gt 8,
 8 classes, a 100-step warmup on its own Adam optimizer (polynomial 1e-6 -> lr), then 1500
 steps on a fresh one (exponential decay 200 / 0.97), batch 32, bf16 compute; the
 predict path at score_thresh 0.05 and the COCO evaluator. The datasets live on the
@@ -13,8 +13,10 @@ device as uint8 and each step slices its batch there.
 `--device` (default cuda; raises without a GPU) is the one flag the JAX tool lacks. No
 file is written unless `--out` is given. `--save-weights FILE` exports the trained
 weights as `.msgpack` (the JAX tool's format, models/convert.py); `--load-weights FILE`
-loads such a file, from either package, and skips training. `--ptq` (ROADMAP A13) is
-not ported yet and raises NotImplementedError.
+loads such a file, from either package, and skips training. `--ptq` also evaluates the
+int8 path (ops/quant.py) on the same weights and val split, calibrated on 4 train
+batches: "ptq" (heads float) and "ptq_heads" (heads int8 too), each gated by its mAP@0.5
+drop against float <= `--ptq-max-drop` (0.02), and `pass` needs every gate.
 """
 
 from __future__ import annotations
@@ -33,13 +35,14 @@ from ssd_object_detection_tpu_torch.eval.runner import evaluate_batches
 from ssd_object_detection_tpu_torch.models.convert import load_params_msgpack, save_params_msgpack
 from ssd_object_detection_tpu_torch.models.ssd import MODEL_SPECS, SSD
 from ssd_object_detection_tpu_torch.ops.anchors import generate_anchors
+from ssd_object_detection_tpu_torch.ops.quant import quantize_ssd
 from ssd_object_detection_tpu_torch.train.optim import (
     exponential_decay,
     make_optimizer,
     polynomial_decay,
 )
 from ssd_object_detection_tpu_torch.train.step import StepConfig, create_train_state, make_train_step
-from ssd_object_detection_tpu_torch.utils.device import resolve_device
+from ssd_object_detection_tpu_torch.utils.device import resolve_device, true_divide
 
 NUM_CLASSES = 8
 MAX_GT = 8
@@ -60,12 +63,15 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--out", type=str, default=None, help="also write the result here")
     p.add_argument("--gate", type=float, default=0.9)
     p.add_argument("--variant", type=str, default="ssd300",
-                   help="a VGG-trunk model spec of models/ssd.py::MODEL_SPECS")
+                   help=f"a model spec of models/ssd.py::MODEL_SPECS: {', '.join(MODEL_SPECS)}")
     p.add_argument("--canonical", action="store_true",
                    help="train and decode in canonical SSD-paper mode (smooth-L1, "
                    "per-image mining, 0.1/0.2 encoding variances)")
-    p.add_argument("--ptq", action="store_true", help="not ported yet (ROADMAP A13)")
-    p.add_argument("--ptq-max-drop", type=float, default=0.02, help="with --ptq (ROADMAP A13)")
+    p.add_argument("--ptq", action="store_true",
+                   help="also evaluate int8 PTQ (heads float, and heads int8) on the same "
+                   "weights, calibrated on 4 train batches")
+    p.add_argument("--ptq-max-drop", type=float, default=0.02,
+                   help="with --ptq: the largest mAP@0.5 drop against float that passes")
     p.add_argument("--save-weights", type=str, default=None,
                    help="export the trained weights to this .msgpack file")
     p.add_argument("--load-weights", type=str, default=None,
@@ -114,8 +120,6 @@ def _train(args, model, train_step, batch_at, device: torch.device) -> float:
 
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     args = _parser().parse_args(argv)
-    if args.ptq:
-        raise NotImplementedError("--ptq: int8 post-training quantization is not ported yet (ROADMAP A13)")
     if args.variant not in MODEL_SPECS:
         raise ValueError(f"unknown --variant {args.variant!r}; expected one of {sorted(MODEL_SPECS)}")
     device = resolve_device(args.device)
@@ -154,13 +158,29 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
             print(f"trained weights exported to {args.save_weights}", flush=True)
 
     # evaluate the held-out split with the predict path and the full evaluator
-    predict = make_predict_fn(model, anchors, variances=variances, score_thresh=0.05)
-    val_batches = (
-        {"image": val["image"][b0:b0 + bs],
-         **{k: val[k][b0:b0 + bs].cpu().numpy() for k in ("gt_cls", "gt_boxes", "gt_valid")}}
-        for b0 in range(0, args.num_val, bs)
-    )
-    metrics = evaluate_batches(predict, val_batches, num_classes=NUM_CLASSES)
+    def run_eval(eval_model) -> Dict[str, float]:
+        predict = make_predict_fn(eval_model, anchors, variances=variances, score_thresh=0.05)
+        val_batches = (
+            {"image": val["image"][b0:b0 + bs],
+             **{k: val[k][b0:b0 + bs].cpu().numpy() for k in ("gt_cls", "gt_boxes", "gt_valid")}}
+            for b0 in range(0, args.num_val, bs)
+        )
+        return evaluate_batches(predict, val_batches, num_classes=NUM_CLASSES)
+
+    metrics = run_eval(model)
+
+    ptq_results = {}  # "ptq": heads float; "ptq_heads": heads int8 too
+    if args.ptq:
+        # calibrated on TRAIN batches, normalized as predict feeds the model
+        calib = [(true_divide(train["image"][i * bs:(i + 1) * bs].float(), 255.0) - 0.5) * 2.0
+                 for i in range(min(4, n_batches))]
+        for key, include_heads in (("ptq", False), ("ptq_heads", True)):
+            q_model, qspec = quantize_ssd(model, calib, include_heads=include_heads)
+            print(f"{key}: quantized {len(qspec)} convs: {sorted(qspec)}", flush=True)
+            ptq_results[key] = run_eval(q_model)
+            print(f"{key}: float mAP@0.5 {metrics['mAP@0.5']:.4f} -> int8 "
+                  f"{ptq_results[key]['mAP@0.5']:.4f}", flush=True)
+            del q_model
 
     result = {
         "dataset": "synthetic (hermetic; data/synthetic.py)",
@@ -177,6 +197,15 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         "pass": bool(metrics["mAP@0.5"] > args.gate),
         "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
     }
+    for key, ptq_metrics in ptq_results.items():
+        drop = float(metrics["mAP@0.5"]) - float(ptq_metrics["mAP@0.5"])
+        result[key] = {
+            "metrics": {k: float(v) for k, v in ptq_metrics.items()},
+            "mAP50_drop_vs_float": drop,
+            "gate": f"drop <= {args.ptq_max_drop}",
+            "pass": bool(drop <= args.ptq_max_drop),
+        }
+        result["pass"] = bool(result["pass"] and result[key]["pass"])
     if args.out:
         with open(args.out, "w") as f:
             json.dump(result, f, indent=2)

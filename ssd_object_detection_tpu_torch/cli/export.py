@@ -12,8 +12,10 @@ it was exported on (`--device`, default cuda; raises without a GPU). Load it wit
 NMS; the host keeps image decode and pack_canvas):
     detections = detect(canvas_u8, sizes)  # (B, 3, Hc, Wc) uint8, (B, 2) int32
 and `--fused --tiers 1,4,8` one bundle with a program per batch tier, for
-DetectorService.from_artifact and `cli.serve --artifact`. `--ptq` and `--ptq-heads`
-(ROADMAP A13) raise.
+DetectorService.from_artifact and `cli.serve --artifact`. `--ptq` exports the int8
+path (ops/quant.py), calibrated on `--calib-batches` (4) batches of `--batch-size` from
+the config's val split (`--ptq-heads` quantizes the heads too); the artifact records
+its precision, "int8-ptq".
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import argparse
 import logging
 from typing import Optional, Sequence
 
-from ssd_object_detection_tpu_torch.cli.common import add_ptq_flags, build_model, refuse_ptq
+from ssd_object_detection_tpu_torch.cli.common import (
+    add_ptq_flags, build_model, calibration_batches, quantize_for_serving,
+)
 from ssd_object_detection_tpu_torch.config import load_config
 from ssd_object_detection_tpu_torch.eval.serve import (
     export_detector, export_fused_detector, export_fused_detector_bundle,
@@ -46,14 +50,16 @@ def main(argv: Optional[Sequence[str]] = None) -> str:
                         "exported as one bundle; overrides --batch-size")
     parser.add_argument("--canvas", type=int, nargs=2, default=(640, 640),
                         metavar=("HC", "WC"), help="canvas extents for --fused")
-    add_ptq_flags(parser)
+    add_ptq_flags(parser, calib_batches=True)
     args = parser.parse_args(argv)
     if args.tiers and not args.fused:
         parser.error("--tiers requires --fused (bundles hold fused artifacts)")
-    refuse_ptq(args)
 
     cfg = load_config(args.config)
     model, spec = build_model(cfg, args.weights, resolve_device(args.device))
+    if args.ptq:
+        calib = calibration_batches(cfg, spec, args.calib_batches, args.batch_size)
+        model = quantize_for_serving(model, calib, args.ptq_heads)
     anchors = generate_anchors(spec.anchor_spec)
     common = dict(image_size=spec.image_size, variances=cfg.model.loss.variances,
                   score_thresh=args.score_thresh)

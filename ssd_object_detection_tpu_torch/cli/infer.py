@@ -5,7 +5,8 @@
 
 Counterpart of tools/infer.py. Reading, resizing and drawing the images need cv2,
 which raises an error that names it where it is missing; drawing goes through
-utils/viz.py. `--ptq` and `--ptq-heads` (ROADMAP A13) raise.
+utils/viz.py. `--ptq` runs the int8 path (ops/quant.py), calibrated on the input images
+themselves, as the JAX tool does (`--ptq-heads` quantizes the heads too).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from ssd_object_detection_tpu_torch.cli.common import (
-    add_ptq_flags, build_model, class_names, refuse_ptq,
+    add_ptq_flags, build_model, class_names, model_inputs, quantize_for_serving,
 )
 from ssd_object_detection_tpu_torch.config import load_config
 from ssd_object_detection_tpu_torch.data.coco import coco_colors
@@ -42,7 +43,6 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
     parser.add_argument("--device", type=str, default="cuda", choices=("cuda", "cpu"))
     add_ptq_flags(parser)
     args = parser.parse_args(argv)
-    refuse_ptq(args)
     cv2 = require_cv2()
 
     cfg = load_config(args.config)
@@ -60,6 +60,8 @@ def main(argv: Optional[Sequence[str]] = None) -> List[dict]:
         originals.append(rgb)
         batch.append(cv2.resize(rgb, (size, size)).astype(np.float32) / 255.0)
 
+    if args.ptq:  # calibrated on the input images themselves
+        model = quantize_for_serving(model, [model_inputs(np.stack(batch))], args.ptq_heads)
     predict = make_predict_fn(model, generate_anchors(spec.anchor_spec),
                               variances=cfg.model.loss.variances,
                               score_thresh=args.score_thresh, iou_thresh=args.iou_thresh)

@@ -4,7 +4,9 @@
 [--port 8000] [--device cuda]`, or `--artifact bundle.zip` to serve an exported fused
 artifact (cli/export.py --fused) with no model code or weights file. Counterpart of
 tools/serve.py, with its flags; `--device` (default cuda; raises without a GPU) takes
-the place of the JAX tool's platform. `--ptq` and `--ptq-heads` (ROADMAP A13) raise.
+the place of the JAX tool's platform. `--ptq` serves the int8 path (ops/quant.py),
+calibrated on 4 batches of max(--batch-size, 8) from the config's val split
+(`--ptq-heads` quantizes the heads too); an artifact carries its own precision.
 
 Endpoints:
   GET  /healthz  -> {"status": "ok", "model": ..., "device": ...}
@@ -28,12 +30,13 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Sequence
 
 from ssd_object_detection_tpu_torch.cli.common import (
-    add_ptq_flags, build_model, class_names, device_name, refuse_ptq,
+    add_ptq_flags, build_model, calibration_batches, class_names, device_name,
+    quantize_for_serving,
 )
 from ssd_object_detection_tpu_torch.config import load_config
 from ssd_object_detection_tpu_torch.data.coco import COCO_NAMES
 from ssd_object_detection_tpu_torch.eval.serve import (
-    BatchingFrontEnd, DetectorService, decode_image_bytes,
+    BatchingFrontEnd, DetectorService, artifact_precision, decode_image_bytes,
 )
 from ssd_object_detection_tpu_torch.ops.anchors import generate_anchors
 from ssd_object_detection_tpu_torch.utils.device import resolve_device
@@ -48,17 +51,20 @@ def _tiers(text: str):
 def build_service(args):
     """Config + weights -> (DetectorService, info dict), the model built as cli/eval.py
     builds it, so served weights match evaluated weights exactly."""
-    refuse_ptq(args)
     cfg = load_config(args.config)
     device = resolve_device(args.device)
     model, spec = build_model(cfg, args.weights, device)
+    if args.ptq:
+        calib = calibration_batches(cfg, spec, 4, max(args.batch_size, 8))
+        model = quantize_for_serving(model, calib, args.ptq_heads)
     service = DetectorService(
         model, generate_anchors(spec.anchor_spec), image_size=spec.image_size,
         batch_size=args.batch_size, variances=cfg.model.loss.variances,
         score_thresh=args.score_thresh, iou_thresh=args.iou_thresh,
         label_names=class_names(cfg), batch_tiers=_tiers(args.batch_tiers),
     )
-    info = {"model": cfg.model.variant, "precision": cfg.model.precision,
+    info = {"model": cfg.model.variant,
+            "precision": "int8-ptq" if args.ptq else cfg.model.precision,
             "device": device_name(device)}
     return service, info
 
@@ -77,7 +83,7 @@ def build_artifact_service(args):
             "a multi-tier bundle (cli/export.py --fused --tiers) to serve with batch tiers",
             args.batch_tiers, service._batch_size,
         )
-    info = {"model": os.path.basename(args.artifact), "precision": "artifact",
+    info = {"model": os.path.basename(args.artifact), "precision": artifact_precision(blob),
             "batch_tiers": service._tiers, "device": device_name(device)}
     return service, info
 
@@ -157,7 +163,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     add_ptq_flags(p)
     args = p.parse_args(argv)
     if args.artifact:
-        refuse_ptq(args)
+        if args.ptq or args.ptq_heads:
+            p.error("--ptq quantizes at export (cli/export.py --ptq); an artifact is served as "
+                    "it was exported")
         service, info = build_artifact_service(args)
     elif args.config:
         service, info = build_service(args)

@@ -156,7 +156,7 @@ class ModelConfig:  # config/default.yml:13-42
     warmup: WarmupSection = dataclasses.field(default_factory=WarmupSection)
     split_train: SplitTrainSection = dataclasses.field(default_factory=SplitTrainSection)
     # TPU extensions
-    variant: str = "ssd300"  # any key of models/ssd.MODEL_SPECS (ssd300, ssd512, ssd300_r34, ssd512_r34, ssd300_mnv2)
+    variant: str = "ssd300"  # any key of models/ssd.MODEL_SPECS (ssd300, ssd512, ssd300_r34, ssd512_r34, ssd300_mnv2, ssd512_mnv2)
     precision: str = "bfloat16"  # compute dtype: "float32" | "bfloat16"
     s2d_stem: bool = True  # space-to-depth block1 (exact rewrite, MXU-friendly conv1)
     eval_every: int = 0  # run val-split mAP every N epochs (0 = only via --eval-after)

@@ -8,7 +8,10 @@ exported on the device the model sits on and runs only there; the device is reco
 the artifact, and loading it for another device raises. A bundle is a zip of one
 `tier_XXXX.pt2` per batch tier and a `meta.json` (format, tiers, canvas, image size,
 device), so an artifact service can dispatch each request at the smallest tier that
-fits, as the live service does.
+fits, as the live service does. The meta records the model's precision: "int8-ptq" for
+a model from ops/quant.py::quantize_model, whose convs export as the
+`ssd_torch::int8_conv` operator (importing this module registers it, so a quantized
+artifact loads), else the compute dtype.
 
 Host work per request is image decode (cv2, which only `decode_image_bytes` and the
 downscale of an oversized image need) and canvas packing; the resize, normalization,
@@ -39,6 +42,7 @@ from ssd_object_detection_tpu_torch.eval.predict import (
 from ssd_object_detection_tpu_torch.eval.runner import _fetch_detections
 from ssd_object_detection_tpu_torch.ops.nms import Detections
 from ssd_object_detection_tpu_torch.ops.preprocess import pack_canvas
+from ssd_object_detection_tpu_torch.ops.quant import quantized_convs  # registers the int8 op
 from ssd_object_detection_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -61,13 +65,21 @@ def require_cv2():
     return cv2
 
 
+def model_precision(model: nn.Module) -> str:
+    """"int8-ptq" when any conv of `model` runs int8, else its compute dtype's name."""
+    if quantized_convs(model):
+        return "int8-ptq"
+    return str(getattr(model, "dtype", torch.float32)).removeprefix("torch.")
+
+
 def _save(module: nn.Module, example: Tuple[torch.Tensor, ...], device: torch.device) -> bytes:
     """torch.export `module` at the shapes of `example`, on `device`, to .pt2 bytes."""
     with torch.no_grad():
         program = torch.export.export(module, example)
     program.example_inputs = None  # the artifact carries the weights, not a sample batch
     buf = io.BytesIO()
-    meta = {"format": ARTIFACT_FORMAT, "device": str(device)}
+    meta = {"format": ARTIFACT_FORMAT, "device": str(device),
+            "precision": model_precision(module.model)}
     torch.export.save(program, buf, extra_files={_META: json.dumps(meta)})
     return buf.getvalue()
 
@@ -139,7 +151,15 @@ def _artifact_meta(blob: bytes) -> Dict:
 
 def _load_program(blob: bytes, device: torch.device):
     _check_device(_artifact_meta(blob)["device"], device)
-    return torch.export.load(io.BytesIO(blob))
+    return torch.export.load(io.BytesIO(blob))  # ssd_torch::int8_conv is registered above
+
+
+def artifact_precision(blob: bytes) -> str:
+    """The precision recorded in an artifact or bundle ("int8-ptq", "bfloat16", ...)."""
+    with zipfile.ZipFile(io.BytesIO(blob)) as zf:
+        if _META in zf.namelist():
+            return json.loads(zf.read(_META))["precision"]
+    return _artifact_meta(blob)["precision"]
 
 
 def _user_inputs(program) -> List:
@@ -189,6 +209,7 @@ def export_fused_detector_bundle(
         zf.writestr(_META, json.dumps({
             "format": BUNDLE_FORMAT, "tiers": tiers, "canvas_hw": list(canvas_hw),
             "image_size": image_size, "device": str(_model_device(model)),
+            "precision": model_precision(model),
         }))
     out = buf.getvalue()
     logger.info("exported fused detector bundle: tiers=%s, %d bytes", tiers, len(out))

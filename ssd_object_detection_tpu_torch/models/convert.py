@@ -2,9 +2,11 @@
 
 A flax tree (numpy leaves, with or without its top "params" key) maps onto the port's
 module names one for one, because both keep the Keras/flax layer names:
-`vgg.block{b}_conv{i}`, `extra{bi}_conv{ci}`, `loc_head{i}`, `conf_head{i}`. Conv
-kernels are HWIO in flax and OIHW in PyTorch. The tests use this to give both
-frameworks identical weights.
+`vgg.block{b}_conv{i}`, `resnet.layer2_block0.proj_norm`, `mobilenet.stage1_block0.depthwise`,
+`extra{bi}_conv{ci}`, `loc_head{i}`, `conf_head{i}`. Conv kernels are HWIO in flax and
+OIHW in PyTorch (a depthwise (3, 3, 1, C) kernel becomes (C, 1, 3, 3) by the same
+transpose); GroupNorm's `scale` is the torch `weight` of a 1-D parameter. The tests use
+this to give both frameworks identical weights.
 
 `save_params_msgpack` / `load_params_msgpack` write and read the weights file that the
 JAX package's `Trainer.export_params` and `tools/eval_synthetic.py --save-weights`
@@ -37,6 +39,8 @@ def from_flax_params(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                 state[f"{prefix}weight"] = torch.from_numpy(
                     np.array(np.asarray(value).transpose(3, 2, 0, 1), order="C")
                 )
+            elif name == "scale":  # GroupNorm
+                state[f"{prefix}weight"] = torch.from_numpy(np.array(value))
             elif name == "bias":
                 state[f"{prefix}bias"] = torch.from_numpy(np.array(value))
             else:
@@ -55,7 +59,9 @@ def to_flax_params(state: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         for name in path:
             node = node.setdefault(name, {})
         array = value.detach().cpu().numpy()
-        if leaf == "weight":
+        if leaf == "weight" and array.ndim == 1:  # GroupNorm
+            node["scale"] = array.copy()
+        elif leaf == "weight":
             node["kernel"] = np.ascontiguousarray(array.transpose(2, 3, 1, 0))
         elif leaf == "bias":
             node["bias"] = array.copy()

@@ -1,6 +1,9 @@
 """SSD300 / SSD512 network, port of ssd_object_detection_tpu/models/ssd.py.
 
-VGG-16 trunk -> 2x2 SAME max-pool -> extra conv pyramid -> per-tap loc/conf heads.
+Trunk -> extra conv pyramid -> per-tap loc/conf heads. The trunk is VGG-16 (then a 2x2
+SAME max-pool), ResNet-34 (models/resnet.py) or MobileNetV2 (models/mobilenet.py),
+whose outputs are tap 0 (`blocks[0]` is empty), or the "micro" stem of two 3x3/2 SAME
+convs (32, 64 wide, bias, ReLU) that small tests use.
 Public layout is the JAX package's: input (B, S, S, 3) NHWC in [-1, 1]; output loc
 (B, D, 4) float32 and conf logits (B, D, C), background LAST. Inside, tensors are NCHW
 with channels-last memory, which cuDNN takes as is.
@@ -12,7 +15,9 @@ Numerics carried over from flax:
   - head outputs are permuted NCHW -> NHWC before the (B, H*W*n, k) reshape, which is
     the anchor order of ops/anchors.py;
   - parameters are float32, compute runs in `dtype` (inputs, kernels and biases cast
-    explicitly, ReLU in `dtype`); loc comes out float32, conf per `conf_f32`.
+    explicitly, ReLU in `dtype`); loc comes out float32, conf per `conf_f32`;
+  - `remat=True` recomputes the trunk in the backward pass
+    (torch.utils.checkpoint, while grad is enabled), as flax's nn.remat does.
 """
 
 from __future__ import annotations
@@ -24,7 +29,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from ssd_object_detection_tpu_torch.models.mobilenet import MobileNetV2Trunk
+from ssd_object_detection_tpu_torch.models.resnet import ResNet34Trunk
 from ssd_object_detection_tpu_torch.models.vgg import VGG16Trunk, conv_nchw
 from ssd_object_detection_tpu_torch.ops.anchors import SSD300_SPEC, SSD512_SPEC, AnchorSpec
 
@@ -75,13 +83,60 @@ SSD512_SPEC_MODEL = ModelSpec(
     ),
 )
 
-# The ResNet-34 and MobileNetV2 variants are not ported yet (ROADMAP A11).
+# ResNet-34 family: the trunk emits 38x38x256 (SSD300) or 64x64x256 (SSD512), which
+# is tap 0; the rest of the pyramid is SSD300's strided blocks.
+SSD300_R34_SPEC_MODEL = ModelSpec(
+    name="ssd300_r34",
+    anchor_spec=SSD300_SPEC,
+    trunk="resnet34",
+    blocks=(
+        (),  # tap 0 = trunk output (38x38x256)
+        ((256, 1, 1, "SAME"), (512, 3, 2, "SAME")),
+        ((256, 1, 1, "SAME"), (512, 3, 2, "SAME")),
+        ((128, 1, 1, "SAME"), (256, 3, 2, "SAME")),
+        ((128, 1, 1, "SAME"), (256, 3, 1, "VALID")),
+        ((128, 1, 1, "SAME"), (256, 3, 1, "VALID")),
+    ),
+)
+
+# The undilated 512 pyramid tail of the non-VGG trunks (their trunks already have the
+# receptive field that the dilated VGG pyramid adds).
+_SSD512_PLAIN_TAIL = (
+    ((1024, 3, 2, "SAME"), (1024, 1, 1, "SAME")),
+    ((256, 1, 1, "SAME"), (512, 3, 2, "SAME")),
+    ((128, 1, 1, "SAME"), (256, 3, 2, "SAME")),
+    ((128, 1, 1, "SAME"), (256, 3, 2, "SAME")),
+    ((128, 1, 1, "SAME"), (256, 3, 2, "SAME")),
+    ((128, 1, 1, "SAME"), (256, 3, 2, "SAME")),
+)
+
+SSD512_R34_SPEC_MODEL = ModelSpec(
+    name="ssd512_r34", anchor_spec=SSD512_SPEC, trunk="resnet34",
+    blocks=((),) + _SSD512_PLAIN_TAIL,
+)
+
+# MobileNetV2 family: 38x38x96 (SSD300) or 64x64x96 (SSD512) trunk output as tap 0.
+SSD300_MNV2_SPEC_MODEL = ModelSpec(
+    name="ssd300_mnv2", anchor_spec=SSD300_SPEC, trunk="mobilenetv2",
+    blocks=SSD300_R34_SPEC_MODEL.blocks,
+)
+
+SSD512_MNV2_SPEC_MODEL = ModelSpec(
+    name="ssd512_mnv2", anchor_spec=SSD512_SPEC, trunk="mobilenetv2",
+    blocks=((),) + _SSD512_PLAIN_TAIL,
+)
+
 MODEL_SPECS = {
     "ssd300": SSD300_SPEC_MODEL,
     "ssd512": SSD512_SPEC_MODEL,
+    "ssd300_r34": SSD300_R34_SPEC_MODEL,
+    "ssd512_r34": SSD512_R34_SPEC_MODEL,
+    "ssd300_mnv2": SSD300_MNV2_SPEC_MODEL,
+    "ssd512_mnv2": SSD512_MNV2_SPEC_MODEL,
 }
 
-_TRUNK_CHANNELS = {"vgg16": 256}
+_TRUNK_CHANNELS = {"vgg16": 256, "resnet34": 256, "mobilenetv2": 96, "micro": 64}
+MICRO_CHANNELS = (32, 64)
 
 
 def _lecun_normal_(weight: torch.Tensor, generator: Optional[torch.Generator]) -> None:
@@ -101,17 +156,27 @@ class SSD(nn.Module):
         dtype: torch.dtype = torch.float32,
         s2d_stem: bool = False,
         conf_f32: bool = True,
+        remat: bool = False,
     ):
         super().__init__()
-        if spec.trunk != "vgg16":
-            raise NotImplementedError(
-                f"trunk {spec.trunk!r} is not ported yet (ROADMAP A11); only 'vgg16' is"
-            )
+        if spec.trunk not in _TRUNK_CHANNELS:
+            raise ValueError(f"unknown trunk {spec.trunk!r}; expected one of {sorted(_TRUNK_CHANNELS)}")
         self.num_classes = num_classes
         self.spec = spec
         self.dtype = dtype
         self.conf_f32 = conf_f32
-        self.vgg = VGG16Trunk(dtype=dtype, s2d_stem=s2d_stem)
+        self.remat = remat
+        if spec.trunk == "vgg16":
+            self.vgg = VGG16Trunk(dtype=dtype, s2d_stem=s2d_stem)
+        elif spec.trunk == "resnet34":  # s2d_stem is a VGG conv1 rewrite; ignored here
+            self.resnet = ResNet34Trunk(dtype=dtype)
+        elif spec.trunk == "mobilenetv2":
+            self.mobilenet = MobileNetV2Trunk(dtype=dtype)
+        else:
+            in_ch = 3
+            for i, ch in enumerate(MICRO_CHANNELS):
+                self.add_module(f"micro_conv{i}", nn.Conv2d(in_ch, ch, 3, stride=2))
+                in_ch = ch
 
         in_ch = _TRUNK_CHANNELS[spec.trunk]
         tap_channels = []
@@ -134,20 +199,41 @@ class SSD(nn.Module):
 
     @torch.no_grad()
     def init_weights(self, generator: Optional[torch.Generator] = None) -> "SSD":
-        """flax's default init (lecun-normal kernels, zero biases), from `generator`."""
+        """flax's default init (lecun-normal kernels, zero biases, GroupNorm scale 1 and
+        bias 0), from `generator`."""
         for module in self.modules():
             if isinstance(module, nn.Conv2d):
                 _lecun_normal_(module.weight, generator)
-                module.bias.zero_()
+                if module.bias is not None:
+                    module.bias.zero_()
+            elif isinstance(module, nn.GroupNorm):
+                nn.init.ones_(module.weight)
+                nn.init.zeros_(module.bias)
         return self
+
+    def trunk(self, x: torch.Tensor) -> torch.Tensor:
+        """The trunk on NCHW `x` in the compute dtype -> the pyramid's input."""
+        if self.spec.trunk == "vgg16":
+            return self.vgg(x)
+        if self.spec.trunk == "resnet34":
+            return self.resnet(x)  # 38x38x256: tap-0 resolution
+        if self.spec.trunk == "mobilenetv2":
+            return self.mobilenet(x)  # 38x38x96
+        for i in range(len(MICRO_CHANNELS)):
+            x = F.relu(conv_nchw(x, getattr(self, f"micro_conv{i}"), "SAME", self.dtype))
+        return x
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         # NHWC -> NCHW kept channels-last in memory whatever the caller's strides (a
         # planar canvas resize hands over an NCHW-strided view): cuDNN's NHWC kernels
         # then run without layout transposes, and the cast is the one copy either way
         x = images.permute(0, 3, 1, 2).to(self.dtype, memory_format=torch.channels_last)
-        x = self.vgg(x)
-        x = F.max_pool2d(x, 2, 2, ceil_mode=True)  # flax SAME: the odd edge pools alone
+        if self.remat and torch.is_grad_enabled():
+            x = checkpoint(self.trunk, x, use_reentrant=False)
+        else:
+            x = self.trunk(x)
+        if self.spec.trunk == "vgg16":
+            x = F.max_pool2d(x, 2, 2, ceil_mode=True)  # flax SAME: the odd edge pools alone
 
         feature_maps = []
         for bi, block in enumerate(self.spec.blocks):

@@ -28,29 +28,49 @@ def same_padding(size: int, kernel: int, stride: int, dilation: int = 1) -> Tupl
     return total // 2, total - total // 2
 
 
-def conv_nchw(x: torch.Tensor, conv: nn.Conv2d, padding: str, dtype: torch.dtype) -> torch.Tensor:
-    """flax `nn.Conv(dtype=dtype, param_dtype=float32)` on an NCHW tensor.
+def conv_pads(x: torch.Tensor, conv: nn.Module, padding: str) -> Tuple[int, int, int, int]:
+    """(top, bottom, left, right) padding of `conv` on NCHW `x`: flax `SAME` (the odd
+    pixel after) or `VALID`."""
+    if padding == "VALID":
+        return 0, 0, 0, 0
+    if padding != "SAME":
+        raise ValueError(f"unknown padding {padding!r}")
+    h_pad = same_padding(x.shape[2], conv.kernel_size[0], conv.stride[0], conv.dilation[0])
+    w_pad = same_padding(x.shape[3], conv.kernel_size[1], conv.stride[1], conv.dilation[1])
+    return (*h_pad, *w_pad)
+
+
+def conv_nchw(x: torch.Tensor, conv: nn.Module, padding: str, dtype: torch.dtype) -> torch.Tensor:
+    """flax `nn.Conv(dtype=dtype, param_dtype=float32)` on an NCHW tensor: the one
+    funnel of every conv of the port's models.
 
     flax casts the input, the kernel and the bias to the compute dtype; the casts are
     explicit here, so the parameters (and their gradients) stay float32 while bf16
-    compute matches flax's. `padding` is "SAME" (flax convention) or "VALID".
+    compute matches flax's. `padding` is "SAME" (flax convention) or "VALID". A conv
+    may have no bias and may be grouped (depthwise). A module that is not exactly an
+    `nn.Conv2d` (the int8 conv of ops/quant.py, or its calibration observer) computes
+    the conv itself through its `conv_nchw(x, pads, dtype)`.
     """
+    pads = conv_pads(x, conv, padding)
+    if type(conv) is not nn.Conv2d:
+        return conv.conv_nchw(x, pads, dtype)
+    return float_conv(x, conv, pads, dtype)
+
+
+def float_conv(x: torch.Tensor, conv: nn.Conv2d, pads: Tuple[int, int, int, int],
+               dtype: torch.dtype) -> torch.Tensor:
+    """`conv` in `dtype` with explicit (top, bottom, left, right) padding."""
     weight = conv.weight.to(dtype)
-    bias = conv.bias.to(dtype)
+    bias = conv.bias.to(dtype) if conv.bias is not None else None
     x = x.to(dtype)
-    if padding == "SAME":
-        h_pad = same_padding(x.shape[2], conv.kernel_size[0], conv.stride[0], conv.dilation[0])
-        w_pad = same_padding(x.shape[3], conv.kernel_size[1], conv.stride[1], conv.dilation[1])
-        if h_pad[0] != h_pad[1] or w_pad[0] != w_pad[1]:
-            x = F.pad(x, (w_pad[0], w_pad[1], h_pad[0], h_pad[1]))
-            pad = (0, 0)
-        else:
-            pad = (h_pad[0], w_pad[0])
-    elif padding == "VALID":
+    top, bottom, left, right = pads
+    if top != bottom or left != right:
+        x = F.pad(x, (left, right, top, bottom))
         pad = (0, 0)
     else:
-        raise ValueError(f"unknown padding {padding!r}")
-    return F.conv2d(x, weight, bias, stride=conv.stride, padding=pad, dilation=conv.dilation)
+        pad = (top, left)
+    return F.conv2d(x, weight, bias, stride=conv.stride, padding=pad, dilation=conv.dilation,
+                    groups=conv.groups)
 
 
 class VGG16Trunk(nn.Module):

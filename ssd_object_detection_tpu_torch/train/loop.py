@@ -24,9 +24,11 @@ for, the whole recipe, flip included, runs inside the train step (ops/augment.py
 both feeds hand it clean resized images: the packed feed drops its host flip, the
 decode feed its host flip, expand, crop and photometric.
 
-Not ported, each raising NotImplementedError: the Keras VGG import `pretrained_vgg`
-(ROADMAP A11), data parallelism (A12: `data_parallel > 1`, or the default 0 where more
-than one CUDA device divides the batch), `remat` and `debug_nans` (A15).
+`model.pretrained_vgg` loads a Keras VGG16 .h5 into the trunk (models/import_keras.py;
+a non-VGG trunk raises ValueError, as in the JAX Trainer) and `model.remat` recomputes
+the trunk in the backward pass. Not ported, each raising NotImplementedError: data
+parallelism (ROADMAP A12: `data_parallel > 1`, or the default 0 where more than one
+CUDA device divides the batch) and `debug_nans` (A15).
 """
 
 from __future__ import annotations
@@ -46,6 +48,7 @@ from ssd_object_detection_tpu_torch.data.pipeline import CocoPipeline, PipelineC
 from ssd_object_detection_tpu_torch.data.prefetch import device_prefetch
 from ssd_object_detection_tpu_torch.data.synthetic import SyntheticDetectionDataset
 from ssd_object_detection_tpu_torch.models.convert import load_params_msgpack, save_params_msgpack
+from ssd_object_detection_tpu_torch.models.import_keras import load_vgg16_trunk_into
 from ssd_object_detection_tpu_torch.models.ssd import MODEL_SPECS, SSD
 from ssd_object_detection_tpu_torch.ops.anchors import generate_anchors
 from ssd_object_detection_tpu_torch.ops.augment import AugConfig
@@ -80,11 +83,9 @@ def _refuse_unported(cfg: Config, device: torch.device) -> None:
     """Raise for every config option whose behaviour the port does not have yet."""
     mc, dp = cfg.model, cfg.parallel.data_parallel
     unported = {
-        "model.pretrained_vgg (ROADMAP A11)": bool(mc.pretrained_vgg),
         "parallel.data_parallel > 1 (ROADMAP A12)": dp > 1,
         "parallel.data_parallel: 0 over more than one CUDA device (ROADMAP A12)":
             dp == 0 and _auto_data_parallel(mc.train.batch_size, device) > 1,
-        "model.remat (ROADMAP A15)": mc.remat,
         "model.debug_nans (ROADMAP A15)": mc.debug_nans,
     }
     asked = [name for name, on in unported.items() if on]
@@ -121,7 +122,15 @@ class Trainer:
         dtype = torch.bfloat16 if mc.precision == "bfloat16" else torch.float32
         self.model = SSD(
             num_classes=self.num_classes, spec=self.spec, dtype=dtype, s2d_stem=mc.s2d_stem,
-        ).init_weights(torch.Generator().manual_seed(0)).to(self.device)
+            remat=mc.remat,
+        ).init_weights(torch.Generator().manual_seed(0))
+        if mc.pretrained_vgg:
+            if self.spec.trunk != "vgg16":
+                raise ValueError(
+                    f"pretrained_vgg is a VGG16 trunk import; variant {mc.variant!r} "
+                    f"uses the {self.spec.trunk!r} trunk")
+            load_vgg16_trunk_into(self.model, mc.pretrained_vgg)
+        self.model = self.model.to(self.device)
         self.anchors = generate_anchors(self.spec.anchor_spec)
 
         tr, wu = mc.train, mc.warmup

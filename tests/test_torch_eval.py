@@ -21,6 +21,7 @@ from ssd_object_detection_tpu_torch.cli import eval as cli_eval
 from ssd_object_detection_tpu_torch.cli import eval_synthetic
 from ssd_object_detection_tpu_torch.eval import coco_map
 from ssd_object_detection_tpu_torch.eval.runner import evaluate_batches
+from ssd_object_detection_tpu_torch.models.ssd import MODEL_SPECS
 from ssd_object_detection_tpu_torch.ops.nms import Detections
 
 torch.set_num_threads(1)
@@ -109,10 +110,11 @@ def test_eval_synthetic_runs_on_cpu_at_a_tiny_budget(capsys, tmp_path):
 
 
 def test_eval_synthetic_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="A13"):
-        eval_synthetic.main(["--device", "cpu", "--ptq"])
+    """Every variant of MODEL_SPECS is ported (and --ptq, tests/test_torch_quant_cli.py);
+    a name outside the registry still raises."""
     with pytest.raises(ValueError, match="unknown --variant"):
-        eval_synthetic.main(["--device", "cpu", "--variant", "ssd300_r34"])
+        eval_synthetic.main(["--device", "cpu", "--variant", "ssd300_vgg19"])
+    assert {"ssd300_r34", "ssd512_r34", "ssd300_mnv2", "ssd512_mnv2"} <= set(MODEL_SPECS)
 
 
 _TINY_BUDGET = ["--device", "cpu", "--warmup", "1", "--steps", "1", "--batch-size", "2",
@@ -145,9 +147,20 @@ def test_cli_eval_prints_metrics_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags", [["--ptq"], ["--data-parallel", "2"]])
-def test_cli_eval_refuses_what_is_not_ported(flags):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_eval.main([str(ROOT / "config" / "synthetic.yml"), "--device", "cpu", *flags])
+def test_cli_eval_refuses_what_is_not_ported(flags, tmp_path, capsys):
+    """--data-parallel (ROADMAP A12) still raises; --ptq is ported and evaluates the
+    int8 path, calibrated on the val split."""
+    cfg = ROOT / "config" / "synthetic.yml"
+    if flags[0] == "--data-parallel":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            cli_eval.main([str(cfg), "--device", "cpu", *flags])
+        return
+    weights = tmp_path / "w.msgpack"
+    eval_synthetic.main([*_TINY_BUDGET, "--save-weights", str(weights)])
+    capsys.readouterr()
+    got = cli_eval.main([str(cfg), "--weights", str(weights), "--max-batches", "1",
+                         "--device", "cpu", "--calib-batches", "1", *flags])
+    assert 0.0 <= got["mAP@0.5"] <= 1.0
 
 
 def test_eval_synthetic_needs_the_card_unless_asked_for_the_cpu():

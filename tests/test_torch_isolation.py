@@ -72,6 +72,16 @@ def test_port_runs_with_jax_blocked():
         "                            torch.tensor([[3], [3]], dtype=torch.int32),\n"
         "                            torch.ones(2, 1, dtype=torch.bool), cfg, draws)\n"
         "assert tuple(out[0].shape) == (2, 8, 8, 3)\n"
+        "from ssd_object_detection_tpu_torch.models import import_keras, mobilenet, resnet\n"
+        "from ssd_object_detection_tpu_torch.models.ssd import MODEL_SPECS, SSD\n"
+        "from ssd_object_detection_tpu_torch.ops import cuda_int8, quant\n"
+        "m = SSD(num_classes=3, spec=MODEL_SPECS['ssd300_mnv2'])\n"
+        "q, n = quant.quantize_synthetic(m, (1, 300, 300, 3))\n"
+        "assert n == 20 and quant.quantized_convs(q) == 20\n"
+        "assert len(quant.discover_eligible(SSD(spec=MODEL_SPECS['ssd300_r34']), (1, 300, 300, 3))) == 30\n"
+        "y = torch.ops.ssd_torch.int8_conv(torch.ones(1, 4, 4, 2), torch.ones(3, 3, 3, 2, dtype=torch.int8),\n"
+        "                                  torch.ones(3), None, torch.tensor(1.0), 1, 1, 1, 1, 1, 1)\n"
+        "assert tuple(y.shape) == (1, 4, 4, 3) and float(y.max()) == 18.0\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     proc = subprocess.run([sys.executable, "-c", code], cwd=str(ROOT), env=env,

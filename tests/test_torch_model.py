@@ -126,6 +126,11 @@ def test_bf16_compute_keeps_f32_params_and_outputs():
 
 
 def test_other_trunks_raise():
-    spec = ModelSpec(name="r34", anchor_spec=PORT_TINY.anchor_spec, blocks=(), trunk="resnet34")
-    with pytest.raises(NotImplementedError, match="A11"):
+    """The R34, MNV2 and micro trunks build (tests/test_torch_trunks.py); a trunk the JAX
+    package does not have raises ValueError."""
+    blocks = ((), ((8, 3, 2, "SAME"),), ((8, 3, 2, "SAME"),))
+    for trunk in ("resnet34", "mobilenetv2", "micro"):
+        SSD(spec=ModelSpec(name=trunk, anchor_spec=PORT_TINY.anchor_spec, blocks=blocks, trunk=trunk))
+    spec = ModelSpec(name="r50", anchor_spec=PORT_TINY.anchor_spec, blocks=(), trunk="resnet50")
+    with pytest.raises(ValueError, match="unknown trunk"):
         SSD(spec=spec)

@@ -1,7 +1,7 @@
 """Port serving (eval/serve.py, cli/serve.py, cli/export.py, cli/infer.py) on the CPU.
 
-Mirrors tests/test_serve.py (the int8 PTQ cases wait for ROADMAP A13) and holds the
-port's DetectorService to the JAX package's on the same weights. Tolerances: against
+Mirrors tests/test_serve.py (its int8 PTQ case is in tests/test_torch_quant_serve.py) and
+holds the port's DetectorService to the JAX package's on the same weights. Tolerances: against
 JAX, detection counts and class ids equal, scores and pixel boxes within rtol 2e-4 /
 atol 2e-5 (the forward tolerance of tests/test_torch_predict.py); an exported program
 against the live path it was exported from, bit-equal.
@@ -22,6 +22,7 @@ from ssd_object_detection_tpu.eval.serve import DetectorService as JaxDetectorSe
 from ssd_object_detection_tpu_torch.eval.predict import make_fused_predict_fn, make_predict_fn
 from ssd_object_detection_tpu_torch.eval.serve import (
     DetectorService,
+    artifact_precision,
     export_detector,
     export_fused_detector,
     export_fused_detector_bundle,
@@ -221,9 +222,34 @@ def test_cli_infer_writes_annotated_images(tiny_yaml, tmp_path, capsys):
 @pytest.mark.parametrize("cli,extra", [("serve", []), ("export", ["--out", "x.pt2"]),
                                        ("infer", ["--images", "a.jpg"])])
 @pytest.mark.parametrize("flag", ["--ptq", "--ptq-heads"])
-def test_cli_ptq_flags_raise(tiny_yaml, cli, extra, flag):
+def test_cli_ptq_flags_raise(tiny_yaml, cli, extra, flag, tmp_path, monkeypatch):
+    """The PTQ flags no longer raise: `--ptq` runs each CLI through the int8 path (the
+    artifact and the service say "int8-ptq"), and `--ptq-heads` alone, as in the JAX
+    tools, changes nothing (float)."""
     import importlib
 
-    main = importlib.import_module(f"ssd_object_detection_tpu_torch.cli.{cli}").main
-    with pytest.raises(NotImplementedError, match="A13"):
-        main([tiny_yaml, "--device", "cpu", flag, *extra])
+    module = importlib.import_module(f"ssd_object_detection_tpu_torch.cli.{cli}")
+    quantizing = flag == "--ptq"
+    calls = []
+    real = module.quantize_for_serving
+    monkeypatch.setattr(module, "quantize_for_serving",
+                        lambda model, calib, heads: calls.append(heads) or real(model, calib, heads))
+    monkeypatch.chdir(tmp_path)
+    if cli == "serve":
+        args = dict(config=tiny_yaml, weights=None, batch_size=2, batch_tiers="1,2",
+                    score_thresh=0.05, iou_thresh=0.45, device="cpu", ptq=quantizing,
+                    ptq_heads=not quantizing)
+        _, info = module.build_service(type("Args", (), args))
+        assert info["precision"] == ("int8-ptq" if quantizing else "float32")
+    elif cli == "export":
+        module.main([tiny_yaml, "--device", "cpu", flag, "--calib-batches", "1", *extra])
+        with open("x.pt2", "rb") as f:
+            precision = artifact_precision(f.read())
+        assert precision == ("int8-ptq" if quantizing else "float32")
+    else:
+        cv2 = pytest.importorskip("cv2")
+        cv2.imwrite("a.jpg", np.random.default_rng(6).integers(0, 256, (40, 50, 3), np.uint8))
+        results = module.main([tiny_yaml, "--device", "cpu", flag, *extra, "--out-dir", "out",
+                               "--score-thresh", "0.05"])
+        assert results[0]["image"] == "a.jpg"
+    assert calls == ([False] if quantizing else [])

@@ -62,10 +62,14 @@ def test_trainer_grad_accumulation(tmp_path):
 
 
 def test_trainer_refuses_unported_options(tmp_path):
-    for key, value in (("model.pretrained_vgg", "vgg.h5"), ("parallel.data_parallel", 2),
-                       ("model.remat", True), ("model.debug_nans", True)):
+    """Data parallelism (A12) and debug_nans (A15) still raise; pretrained_vgg and remat
+    are ported (tests/test_torch_import_keras.py, tests/test_torch_trunks.py)."""
+    for key, value in (("parallel.data_parallel", 2), ("model.debug_nans", True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Trainer(_tiny_config(tmp_path, **{key: value}), run_dir=str(tmp_path / "r"), device="cpu")
+    trainer = Trainer(_tiny_config(tmp_path, **{"model.remat": True}), run_dir=str(tmp_path / "r"),
+                      device="cpu")
+    assert trainer.model.remat
 
 
 @pytest.mark.parametrize("devices,batch_size,refused", [(2, 4, True), (8, 4, True), (3, 4, True),
