@@ -69,14 +69,19 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      version; per trunk shape the tile plan, kernel, plain and cuDNN (F.conv2d + relu +
      max_pool2d) times, TFLOP/s, share of the bound, host time of the wrapper and of one
      tensor-map encode;
-  5b. the int8 conv kernels (csrc/int8_conv.cu): SSD300-VGG16 quantized on one synthetic
-     batch, and each of its 17 int8 conv calls of a batch-32 forward replayed on its real
-     input, then 7 tile-seam shapes (IC and OC off the tiles, K tails, stride 2 on odd and
-     even sizes, VALID 3 -> 1, batch 1): quantize and int32 accumulators bit-equal to the
-     plain version (a float64 conv of the int8 values), dequantized outputs bit-equal at
-     bf16 and float32; per conv the per-call and back-to-back ms, TOP/s, share of the
-     bound, the plain version, im2col + torch._int_mm (cuBLASLt int8) + dequantize, the
-     float path's bf16 cuDNN conv and the wrapper's host us;
+  5b. the int8 conv kernels (csrc/int8_conv.cu: a quantize kernel, a wgmma s8 conv fed
+     by TMA through an mbarrier ring): SSD300-VGG16 quantized on one synthetic batch, and
+     each of its 17 int8 conv calls of a batch-32 forward replayed on its real input,
+     then 7 shapes kept from the first kernel's seams and the 13 seams of the wgmma
+     kernel's tiles (ops/int8_conv_model.py::SEAMS: halo boxes past every edge, rows and
+     pitch off H and W, IC off 32, OC off 64 and 256, stride 2 on odd and even sizes,
+     1x1 flattened and strided, VALID, a partly empty last round of the persistent
+     grid, batch 1): quantize and int32 accumulators bit-equal to the plain version (a
+     float64 conv of the int8 values), dequantized outputs bit-equal at bf16 and float32;
+     per SSD300 conv the tile plan, the conv kernel and the quantize kernel alone against
+     their own bounds, the pair per call and back to back against its bound, TOP/s, the
+     plain version, im2col + torch._int_mm (cuBLASLt int8) + dequantize, the float
+     path's bf16 cuDNN conv and the wrapper's host us;
   6. NMS on the card against the CPU on random and tie-heavy pools (B=32, N=400, 80
      classes): nms_on_pool, nms_on_pool_merged and its per_anchor_top2 variant give
      bit-equal valid, classes, scores and boxes;
@@ -141,6 +146,9 @@ CONV_REPLACES = "ssd_object_detection_tpu/ops/pallas_conv.py:134"
 INT8_SOURCE = f"{PACKAGE}/csrc/int8_conv.cu"
 INT8_REPLACES = "ssd_object_detection_tpu/ops/quant.py:192 (XLA int8 conv; no Pallas kernel)"
 INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor cores, NVIDIA data sheet
+# the six 3x3 stride-1 int8 convs of SSD300-VGG16 at >= 38x38 (1,070 of its 1,242 GOP)
+INT8_LARGE = ("vgg/block2_conv2", "vgg/block3_conv1", "vgg/block3_conv2", "vgg/block3_conv3",
+              "extra0_conv0", "extra0_conv1")
 # (layer, H = W, IC = OC, pool): the VGG trunk convolutions the fused op stands for.
 CONV_SHAPES = (("block1_conv2", 300, 64, True), ("block2_conv2", 150, 128, True),
                ("block3_conv2", 75, 256, False))
@@ -162,8 +170,9 @@ CONV_EDGES = (
     ("ic512_streamed64", 1, 10, 20, 512, 64, True, False),  # one tile of 32 chunks
     ("ic512_pingpong", 8, 64, 64, 512, 128, True, False),  # 352 tiles of 32 chunks, 5 stages
 )
-# (name, B, H, W, IC, OC, kernel, stride, padding): the seams of the int8 conv kernel's
-# tiles (csrc/int8_conv.cu: 128 pixels x 128 channels a CTA, 64-channel K chunks).
+# (name, B, H, W, IC, OC, kernel, stride, padding): shapes at the int8 conv kernel's
+# seams, kept from its first design (128 x 128 tiles, 64-channel K chunks); the seams
+# of the wgmma kernel's tiles (ops/int8_conv_model.py::SEAMS) run after them.
 INT8_EDGES = (
     ("ic40_oc72_stride2_even", 2, 16, 16, 40, 72, 3, 2, "SAME"),  # K and OC tails, pads (0, 1)
     ("ic96_oc200", 2, 17, 19, 96, 200, 3, 1, "SAME"),  # a half K chunk, a second OC tile
@@ -173,6 +182,9 @@ INT8_EDGES = (
     ("batch1_pointwise", 1, 19, 19, 1024, 1024, 1, 1, "SAME"),
     ("m_tail", 3, 5, 7, 128, 136, 3, 1, "SAME"),  # 105 pixels: one partial pixel tile
 )
+# kernel names of csrc/int8_conv.cu in a profile
+INT8_GROUPS = (("int8 quantize (csrc/int8_conv.cu)", ("quantize_pieces", "quantize_groups")),
+               ("int8 conv (csrc/int8_conv.cu)", ("conv_wgmma",)))
 
 
 def fail(message: str) -> None:
@@ -1927,9 +1939,10 @@ def int8_inputs(torch, np, dev):
 
 
 def int8_bound(x, w_q, out) -> tuple:
-    """Least time for one int8 conv: x (compute dtype) read once, the int8 weights and the
-    scales and bias read once, the output written once, over the memory rate; the
-    2*B*Ho*Wo*KH*KW*IC*OC int8 operations over the dense int8 rate."""
+    """Least time for one int8 conv (quantize and conv together): x (compute dtype) read
+    once, the int8 weights and the scales and bias read once, the output written once,
+    over the memory rate; the 2*B*Ho*Wo*KH*KW*IC*OC int8 operations over the dense int8
+    rate."""
     batch, ho, wo, oc = out.shape
     _, kh, kw, ic = w_q.shape
     ops = 2 * batch * ho * wo * kh * kw * ic * oc
@@ -1940,17 +1953,38 @@ def int8_bound(x, w_q, out) -> tuple:
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), ops
 
 
+def int8_conv_bound(xq, w_q, out) -> tuple:
+    """Least time for the conv kernel alone: the int8 xq read once, the int8 weights and
+    the scales and bias read once, the output written once, over the memory rate; its
+    operations over the dense int8 rate."""
+    batch, ho, wo, oc = out.shape
+    _, kh, kw, ic = w_q.shape
+    ops = 2 * batch * ho * wo * kh * kw * ic * oc
+    nbytes = xq.numel() + w_q.numel() + 8 * oc + out.numel() * out.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def quantize_bound(x, xq) -> float:
+    """Least time for the quantize kernel: x read once, xq written once (bytes)."""
+    return (x.numel() * x.element_size() + xq.numel()) / HBM_BYTES_PER_S * 1e3
+
+
 def int8_phase(torch, np, dev, card: str) -> dict:
     """5b. The int8 kernels against their plain version on the card at SSD300-VGG16's 17
-    eligible conv calls at batch 32 (their real inputs) and at the tile seams: quantize
-    and int32 accumulators bit-equal, dequantized output bit-equal at bf16 and float32;
-    per shape the kernel's per-call and back-to-back ms, the plain version, im2col +
-    torch._int_mm (cuBLASLt int8) + dequantize, the float path's bf16 cuDNN conv, the
-    bound and the wrapper's host us."""
+    eligible conv calls at batch 32 (their real inputs), at the shapes kept from the
+    first kernel's seams and at the seams of the wgmma kernel's tiles: quantize and int32
+    accumulators bit-equal, dequantized output bit-equal at bf16 and float32; per SSD300
+    conv the tile plan, the quantize kernel and the conv kernel alone against their own
+    bounds, the pair per call and back to back against `int8_bound`, TOP/s, the plain
+    version, im2col + torch._int_mm (cuBLASLt int8) + dequantize, the float path's bf16
+    cuDNN conv and the wrapper's host us."""
     import torch.nn.functional as F
 
     from ssd_object_detection_tpu_torch.models.vgg import float_conv, same_padding
     from ssd_object_detection_tpu_torch.ops import cuda_int8
+    from ssd_object_detection_tpu_torch.ops.int8_conv_model import SEAMS, named_cases
 
     calls, model, q_model, _ = int8_inputs(torch, np, dev)
     if len(calls) != 17:
@@ -1962,8 +1996,7 @@ def int8_phase(torch, np, dev, card: str) -> dict:
         want_xq = cuda_int8.quantize_plain(x, x_scale)
         if not (torch.equal(xq[..., :ic], want_xq) and not bool(xq[..., ic:].any())):
             fail(f"int8 {name}: quantize kernel != plain in {int((xq[..., :ic] != want_xq).sum())} values")
-        packed = cuda_int8.pack_weights(w_q)
-        acc = cuda_int8.conv_cuda(xq, packed, ic, stride, pads)
+        acc = cuda_int8.conv_cuda(xq, w_q, stride, pads)
         want_acc = cuda_int8.accumulate_plain(want_xq, w_q, stride, pads)
         if not torch.equal(acc, want_acc):
             fail(f"int8 {name}: int32 accumulators differ in {int((acc != want_acc).sum())} of {acc.numel()}")
@@ -1971,13 +2004,16 @@ def int8_phase(torch, np, dev, card: str) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             got = (cuda_int8.int8_conv_cuda(x.to(dtype), w_q, w_scale, bias, x_scale, stride, pads)
                    if dtype == x.dtype else
-                   cuda_int8.conv_cuda(xq, packed, ic, stride, pads, dtype, w_scale, x_scale, bias))
+                   cuda_int8.conv_cuda(xq, w_q, stride, pads, dtype, w_scale, x_scale, bias))
             want = cuda_int8.dequantize_plain(want_acc, x_scale, w_scale, bias, dtype)
             err = max(err, float((got.float() - want.float()).abs().max()))
             if not torch.equal(got, want):
                 fail(f"int8 {name} {dtype}: dequantized output differs from plain by {err:.3e}")
+        plan = cuda_int8.plan_int8(*x.shape, w_q.shape[0], tuple(w_q.shape[1:3]), tuple(stride),
+                                   tuple(pads), 2)
         print(f"int8 {name} x {tuple(x.shape)} {x.dtype} w {tuple(w_q.shape)} stride {stride} pads "
-              f"{pads}: quantize, int32 accumulators, bf16 and float32 outputs bit-equal to plain")
+              f"{pads} ({_plan_text(plan)}): quantize, int32 accumulators, bf16 and float32 "
+              f"outputs bit-equal to plain")
         return err
 
     cuda_int8.int8_conv_cuda.launches = 0
@@ -1985,7 +2021,7 @@ def int8_phase(torch, np, dev, card: str) -> dict:
     for path, args in calls:
         max_abs_err = max(max_abs_err, check(path, *args))
     g = torch.Generator().manual_seed(5)
-    for name, b, h, w, ic, oc, k, s, padding in INT8_EDGES:
+    for name, (b, h, w, ic, oc, k, s, padding) in named_cases(INT8_EDGES, SEAMS).items():
         x = (torch.randn(b, h, w, ic, generator=g) * 3).to(torch.bfloat16).to(dev)
         w_q = torch.randint(-127, 128, (oc, k, k, ic), generator=g, dtype=torch.int8).to(dev)
         w_scale = (torch.rand(oc, generator=g) * 0.01 + 1e-4).to(dev)
@@ -2001,11 +2037,17 @@ def int8_phase(torch, np, dev, card: str) -> dict:
             return cuda_int8.int8_conv_cuda(x, w_q, w_scale, bias, x_scale, stride, pads)
 
         out = kernel()
+        xq = cuda_int8.quantize_cuda(x, x_scale)
         per_call = cuda_ms(torch, kernel, warmup=3, iters=10)
         back_to_back = stream_ms(torch, kernel, iters=10)
+        quantize_ms = stream_ms(torch, lambda: cuda_int8.quantize_cuda(x, x_scale), iters=10)
+        conv_ms = stream_ms(torch, lambda: cuda_int8.conv_cuda(xq, w_q, stride, pads, x.dtype,
+                                                                w_scale, x_scale, bias), iters=10)
         host_us = enqueue_us(torch, kernel, iters=20)
         plain_ms = cuda_ms(torch, lambda: cuda_int8.int8_conv_plain(x, w_q, w_scale, bias, x_scale,
                                                                      stride, pads), warmup=1, iters=3)
+        quantize_plain_ms = cuda_ms(torch, lambda: cuda_int8.quantize_plain(x, x_scale), warmup=1,
+                                    iters=3)
         batch, ho, wo, oc = out.shape
         _, kh, kw, ic = w_q.shape
         w_cols = w_q.reshape(oc, -1).t()  # (K, OC), column-major: cuBLASLt's int8 layout
@@ -2026,21 +2068,41 @@ def int8_phase(torch, np, dev, card: str) -> dict:
         cudnn_ms = cuda_ms(torch, lambda: float_conv(x_nchw, conv, pads, torch.bfloat16),
                            warmup=2, iters=10)
         bound_ms, bound_by, ops = int8_bound(x, w_q, out)
+        conv_bound_ms, conv_bound_by = int8_conv_bound(xq, w_q, out)
+        quantize_bound_ms = quantize_bound(x, xq)
+        plan = cuda_int8.plan_int8(*x.shape, oc, (kh, kw), tuple(stride), tuple(pads),
+                                   out.element_size())
         rows.append({"shape": path, "ms": per_call, "back_to_back_ms": back_to_back,
+                     "quantize_ms": quantize_ms, "quantize_bound_ms": quantize_bound_ms,
+                     "quantize_plain_ms": quantize_plain_ms,
+                     "conv_ms": conv_ms, "conv_bound_ms": conv_bound_ms,
+                     "conv_bound_by": conv_bound_by, "ops": ops,
                      "plain_ms": plain_ms, "library_ms": library_ms, "cudnn_bf16_ms": cudnn_ms,
                      "bound_ms": bound_ms, "bound_by": bound_by, "host_us": host_us})
         print(f"int8 timing {path} {tuple(x.shape)}->{tuple(out.shape)} k{kh} s{stride[0]} "
-              f"[{card}]: kernel {per_call:.4f} ms per call ({back_to_back:.4f} back to back, "
-              f"{ops / back_to_back / 1e9:.1f} TOP/s), {100 * bound_ms / back_to_back:.1f} % of "
-              f"the {bound_ms:.4f} ms bound ({bound_by}); plain {plain_ms:.3f} ms; im2col + "
+              f"({_plan_text(plan)}) [{card}]: conv kernel {conv_ms:.4f} ms back to back = "
+              f"{ops / conv_ms / 1e9:.1f} TOP/s, {100 * conv_bound_ms / conv_ms:.1f} % of its "
+              f"{conv_bound_ms:.4f} ms bound ({conv_bound_by}); quantize kernel {quantize_ms:.4f} ms, "
+              f"{100 * quantize_bound_ms / quantize_ms:.1f} % of its {quantize_bound_ms:.4f} ms "
+              f"bound (bytes), its plain version {quantize_plain_ms:.4f} ms; pair {per_call:.4f} ms per call, {back_to_back:.4f} back to back = "
+              f"{ops / back_to_back / 1e9:.1f} TOP/s, {100 * bound_ms / back_to_back:.1f} % of the "
+              f"{bound_ms:.4f} ms pair bound ({bound_by}); plain {plain_ms:.3f} ms; im2col + "
               f"_int_mm {library_ms:.4f} ms; bf16 cuDNN conv {cudnn_ms:.4f} ms; host per call "
               f"{host_us:.1f} us")
-        del out
-    totals = {key: sum(r[key] for r in rows) for key in
-              ("ms", "back_to_back_ms", "plain_ms", "library_ms", "cudnn_bf16_ms", "bound_ms")}
-    print(f"int8 convs of one SSD300-VGG16 forward at batch 32, summed [{card}]: kernel "
-          f"{totals['ms']:.3f} ms per call ({totals['back_to_back_ms']:.3f} back to back), bound "
-          f"{totals['bound_ms']:.3f} ms, plain {totals['plain_ms']:.1f} ms, im2col + _int_mm "
+        del out, xq
+    keys = ("ms", "back_to_back_ms", "quantize_ms", "quantize_bound_ms", "quantize_plain_ms",
+            "conv_ms", "conv_bound_ms", "plain_ms", "library_ms", "cudnn_bf16_ms", "bound_ms")
+    totals = {key: sum(r[key] for r in rows) for key in keys}
+    large = [r for r in rows if r["shape"] in INT8_LARGE]
+    large_ms = sum(r["conv_ms"] for r in large)
+    large_bound = sum(r["conv_bound_ms"] for r in large)
+    print(f"int8 convs of one SSD300-VGG16 forward at batch 32, summed [{card}]: pair "
+          f"{totals['ms']:.3f} ms per call ({totals['back_to_back_ms']:.3f} back to back) "
+          f"against its {totals['bound_ms']:.3f} ms bound; conv kernel {totals['conv_ms']:.3f} ms "
+          f"against {totals['conv_bound_ms']:.3f}; quantize kernel {totals['quantize_ms']:.3f} ms "
+          f"against {totals['quantize_bound_ms']:.3f} (plain {totals['quantize_plain_ms']:.3f}); the six 3x3 stride-1 convs of >= 38x38: "
+          f"conv kernel {large_ms:.3f} ms, {100 * large_bound / large_ms:.1f} % of their "
+          f"{large_bound:.3f} ms bound; plain {totals['plain_ms']:.1f} ms, im2col + _int_mm "
           f"{totals['library_ms']:.3f} ms, bf16 cuDNN {totals['cudnn_bf16_ms']:.3f} ms; "
           f"{checked} checked launches")
     del calls, model, q_model
@@ -2050,7 +2112,16 @@ def int8_phase(torch, np, dev, card: str) -> dict:
             # the side that holds the larger part of the summed bound
             "bound_by": max(("operations", "bytes"), key=lambda side: sum(
                 r["bound_ms"] for r in rows if r["bound_by"] == side)),
-            "library_ms": totals["library_ms"], "shapes": rows}
+            "library_ms": totals["library_ms"], "back_to_back_ms": totals["back_to_back_ms"],
+            "conv_ms": totals["conv_ms"], "conv_bound_ms": totals["conv_bound_ms"],
+            "quantize_ms": totals["quantize_ms"], "quantize_bound_ms": totals["quantize_bound_ms"],
+            "quantize_plain_ms": totals["quantize_plain_ms"], "shapes": rows}
+
+
+def _plan_text(plan) -> str:
+    mode = "halo" if plan.taps_per_stage == plan.taps and plan.stride == (1, 1) else "tap"
+    return (f"{mode} mode, {plan.row}-byte rows, pitch {plan.pitch} x {plan.rows} rows, "
+            f"{plan.stages} stages, {plan.num_tiles} tiles")
 
 
 def ptq_detect_phase(torch, np, dev, anchors300, card: str) -> int:
@@ -2098,8 +2169,7 @@ def ptq_detect_phase(torch, np, dev, anchors300, card: str) -> int:
           f"{2 * batch / (turns[1] + turns[2]) * 1e3:.1f} img/s, float "
           f"{2 * batch / (turns[0] + turns[3]) * 1e3:.1f} img/s")
     profile_step(torch, lambda: fused_q(canvas, sizes), "one PTQ fused predict call (batch 32)",
-                 (("int8 conv (csrc/int8_conv.cu)", ("quantize_kernel", "conv_kernel<")),)
-                 + PREDICT_GROUPS)
+                 INT8_GROUPS + PREDICT_GROUPS)
 
     tier = 8
     kw = dict(image_size=300, canvas_hw=(640, 640), score_thresh=0.01)

@@ -5,6 +5,7 @@ These tests need an NVIDIA GPU and skip elsewhere. The file imports no JAX, so t
 machine with the card runs it as
 `python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda_int8.py`.
 
+Every shape runs all three output modes of the conv kernel (int32, float32, bf16).
 Tolerances: none. The quantize step is bit-equal (IEEE division, round half to even),
 the int32 accumulators are exact in any order, and the dequantize runs the plain
 version's float32 operations in its order with no fused multiply-add.
@@ -15,6 +16,7 @@ import torch
 
 from ssd_object_detection_tpu_torch.models.vgg import same_padding
 from ssd_object_detection_tpu_torch.ops import cuda_int8
+from ssd_object_detection_tpu_torch.ops.int8_conv_model import SEAMS, named_cases
 
 
 @pytest.fixture
@@ -25,14 +27,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-SHAPES = {  # (B, H, W, IC, OC, kernel, stride, padding)
-    "block3_conv2": (2, 75, 75, 256, 256, 3, 1, "SAME"),
-    "ic_oc_off_the_tiles": (2, 17, 16, 40, 72, 3, 2, "SAME"),
-    "odd_stride2": (1, 19, 19, 512, 256, 3, 2, "SAME"),
-    "valid_3_to_1": (3, 3, 3, 256, 256, 3, 1, "VALID"),
-    "pointwise_batch1": (1, 10, 10, 1024, 200, 1, 1, "SAME"),
-    "ic3": (1, 7, 9, 3, 5, 3, 1, "SAME"),
-}
+SHAPES = named_cases((  # (name, B, H, W, IC, OC, kernel, stride, padding)
+    ("block3_conv2", 2, 75, 75, 256, 256, 3, 1, "SAME"),
+    ("ic_oc_off_the_tiles", 2, 17, 16, 40, 72, 3, 2, "SAME"),
+    ("odd_stride2", 1, 19, 19, 512, 256, 3, 2, "SAME"),
+    ("valid_3_to_1", 3, 3, 3, 256, 256, 3, 1, "VALID"),
+    ("pointwise_batch1", 1, 10, 10, 1024, 200, 1, 1, "SAME"),
+    ("ic3", 1, 7, 9, 3, 5, 3, 1, "SAME"),
+), SEAMS)  # and the seams of the wgmma kernel's tiles; a repeated name or shape fails
 
 
 def _case(device, b, h, w, ic, oc, k, s, padding, dtype, bias=True, seed=0):
@@ -55,9 +57,12 @@ def test_kernels_match_plain(cuda_device, shape, dtype):
     xq = cuda_int8.quantize_cuda(x, x_scale)
     want_xq = cuda_int8.quantize_plain(x, x_scale)
     assert torch.equal(xq[..., :ic], want_xq) and not bool(xq[..., ic:].any())
-    acc = cuda_int8.conv_cuda(xq, cuda_int8.pack_weights(w_q), ic, stride, pads)
+    acc = cuda_int8.conv_cuda(xq, w_q, stride, pads)
     want_acc = cuda_int8.accumulate_plain(want_xq, w_q, stride, pads)
     assert torch.equal(acc, want_acc)
+    other = torch.float32 if dtype == torch.bfloat16 else torch.bfloat16
+    assert torch.equal(cuda_int8.conv_cuda(xq, w_q, stride, pads, other, w_scale, x_scale, bias),
+                       cuda_int8.dequantize_plain(want_acc, x_scale, w_scale, bias, other))
     before = cuda_int8.int8_conv_cuda.launches
     got = torch.ops.ssd_torch.int8_conv(x, w_q, w_scale, bias, x_scale, *stride, *pads)
     torch.cuda.synchronize()
