@@ -48,6 +48,24 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      `debug_nans`: a NaN in vgg.block3_conv1's weight stops the step with
      FloatingPointError naming it, and the step without it runs; (e) max_pool_2x2 at
      block1's output (32x300x300x64 bf16): value and gradient card == CPU, bit for bit;
+  3d. the 2-D (data x model) grid (parallel/shardings.py): four ranks spawned by launch
+     share cuda:0 over gloo as a (2, 2) grid; SSD300-VGG16 at full width from the seed-0
+     weights, global batch 32 (16 a data rank), max_gt 100, 81 classes, its convs of at
+     least 256 output channels column-parallel (printed); 2 float32 steps (TF32 off,
+     deterministic algorithms), each held to the one-process step as 3c holds its ranks
+     (num_positive exactly; loss and unsharded parameters within the halves yardstick,
+     the one-process references run under the same deterministic algorithms; and the
+     grid no farther from one process running its arithmetic, halves of 16 with the
+     column-parallel convs as two halves of their channels, than the halves are from
+     one process),
+     with the replicated parameters and Adam moments bit-equal across the model ranks and
+     every parameter and moment bit-equal across the data ranks after each; the matcher
+     once a step on each rank; then 2 bf16 steps timed, and one bf16 step's
+     gather_channels and copy_to_model collectives replayed alone and timed: a cost
+     figure of gloo through the host on one card, not a scaling figure;
+  3e. the dry run, cli/dryrun.py::dryrun_multichip(4, device="cuda", backend="gloo"):
+     every leg (data-parallel step, checkpoint resume, the (2, 2) leg within 1e-3 of the
+     data-parallel loss, the data-parallel fused predict), with its seconds;
   4. the Trainer through the CLI on config/synthetic.yml (warmup + 2 epochs): the
      matcher must have run once per micro-batch of the steps the config asks for, and
      it must equal the plain matcher on one of the Trainer's own batches; the run must
@@ -125,11 +143,16 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      DetectorService.from_artifact, equal to the live service at every tier and timed the
      same way; the BatchingFrontEnd under 64 threads x 4 single-image requests (img/s,
      p50 and p99 latency, mean dispatched batch);
+  7d. the bench entry, cli/bench.py::main() at its defaults (int8 PTQ and bf16 fused
+     SSD300 img/s at batch 32, 16 batches on the card a round, no host read in the timed
+     rounds), its JSON line printed on a line of its own; and utils/introspect.py's
+     flops_analysis of the SSD300 bf16 and PTQ forwards at batch 32, each equal to the sum
+     over the convs reckoned from their shapes (`reckoned_conv_flops`);
   8. the evaluation gates, three `python -m ssd_object_detection_tpu_torch.cli.eval_synthetic`
      processes at their defaults at once on the card: `--ptq` (SSD300-VGG16 mAP@0.5 > 0.9,
      the int8 paths with heads float and heads int8 within 0.02 of it), `--variant
      ssd300_r34` and `--variant ssd300_mnv2` (each > 0.9);
-  9. prints the kernels line (the matcher's launches count phases 3, 3b, 3c and 4c, the int8
+  9. prints the kernels line (the matcher's launches count phases 3, 3b, 3c, 3d and 4c, the int8
      conv's one PTQ detect call of 7c), then as its last line
      {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -447,6 +470,41 @@ def sm_clock_under_load(torch, fn, seconds: float = 2.5):
     return readings
 
 
+def reckoned_conv_flops(spec, batch: int, num_classes: int) -> int:
+    """2 * B * Ho * Wo * KH * KW * IC * OC summed over every conv of an SSD of `spec`
+    (VGG16 or micro trunk), from the spec's shapes alone: what utils/introspect.py's
+    flops_analysis must count for one forward."""
+    total = 0
+
+    def conv(h, ic, oc, k, stride=1, padding="SAME", dilation=1):
+        nonlocal total
+        ho = -(-h // stride) if padding == "SAME" else (h - (k - 1) * dilation - 1) // stride + 1
+        total += 2 * batch * ho * ho * k * k * ic * oc
+        return ho
+
+    h, ch = spec.image_size, 3
+    if spec.trunk == "vgg16":  # 2x2/s2 pools between blocks, then a SAME (ceil) pool
+        for block, in_ch, features, n_convs in ((1, 3, 64, 2), (2, 64, 128, 2), (3, 128, 256, 3)):
+            h = h if block == 1 else h // 2
+            for i in range(n_convs):
+                conv(h, in_ch if i == 0 else features, features, 3)
+        h, ch = -(-h // 2), 256
+    elif spec.trunk == "micro":
+        for features in (32, 64):
+            h, ch = conv(h, ch, features, 3, 2), features
+    else:
+        raise ValueError(f"no reckoning for the {spec.trunk!r} trunk")
+    taps = []
+    for block in spec.blocks:
+        for c in block:
+            h, ch = conv(h, ch, c[0], c[1], c[2], c[3], c[4] if len(c) > 4 else 1), c[0]
+        taps.append((h, ch))
+    for (h, ch), n in zip(taps, spec.anchor_spec.anchors_per_cell):
+        conv(h, ch, n * 4, 3)
+        conv(h, ch, n * num_classes, 3)
+    return total
+
+
 def conv_bound(x, out, oc: int):
     """Least time for one fused conv: each input read once (x, bf16 weights, f32 bias)
     and the output written once, over the memory rate; 2*B*H*W*9*IC*OC operations
@@ -607,6 +665,8 @@ def main() -> None:
     print(f"phase 3 (SSD300-VGG16 train steps): {time.time() - t_phase:.1f} s")
     family_launches = timed("3b (R34 and MNV2 train steps)", family_train_phase, torch, np, dev, smi)
     dp_launches = timed("3c (data parallel)", dp_phase, torch, np, dev, smi, med)
+    dp_launches += timed("3d (DP x TP)", dp_tp_phase, torch, np, dev, smi, med)
+    timed("3e (dry run)", dryrun_phase, dev)
     t_phase = time.time()
 
     # ---- 4. the Trainer through the CLI ---------------------------------------------
@@ -652,6 +712,7 @@ def main() -> None:
     timed("7 (detect)", detect_phase, torch, np, dev, anchors300)
     int8["launches"] = timed("7c (PTQ detect)", ptq_detect_phase, torch, np, dev, anchors300, smi)
     timed("7b (serving)", serve_phase, torch, np, dev, smi)
+    timed("7d (bench entry)", bench_phase, torch, np, dev, smi)
     timed("8 (mAP gates)", eval_gate_phase)
 
     # ---- 9. result lines ----------------------------------------------------------
@@ -1842,6 +1903,61 @@ def dp_run_steps(torch, dev, state, step, batches, keep_params: bool = False, af
     return out
 
 
+def one_process_f32(torch, dev, variant: str, plain, global_batches, split_min_channels=None):
+    """The float32 steps of the data-parallel phases in one process at batch 32 from the
+    seed-0 weights, whole and as two halves of 16 (the yardstick of batch-16 arithmetic),
+    and with `split_min_channels` also as halves whose convs of at least that many output
+    channels run as two halves of their channels (a (2, 2) grid's arithmetic in one
+    process): (initial parameters, dp_run_steps of the whole, of the halves, of the split
+    halves or None), parameters on the host in model.parameters() order."""
+    from types import SimpleNamespace
+
+    from ssd_object_detection_tpu_torch.models.vgg import float_conv
+    from ssd_object_detection_tpu_torch.parallel.shardings import tp_eligible
+
+    class Halves(torch.nn.Module):
+        """The model run on each half of the batch: what two data ranks compute."""
+
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, x):
+            outs = [self.inner(h) for h in x.chunk(2)]
+            return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+    class SplitConv(torch.nn.Module):
+        """A conv computed as two halves of its output channels, concatenated."""
+
+        def __init__(self, conv):
+            super().__init__()
+            self.conv = conv
+            self.kernel_size, self.stride, self.dilation = conv.kernel_size, conv.stride, conv.dilation
+
+        def conv_nchw(self, x, pads, dtype):
+            c, half = self.conv, self.conv.out_channels // 2
+            outs = [float_conv(x, SimpleNamespace(
+                weight=c.weight[lo:lo + half], bias=None if c.bias is None else c.bias[lo:lo + half],
+                stride=c.stride, dilation=c.dilation, groups=c.groups), pads, dtype) for lo in (0, half)]
+            return torch.cat(outs, dim=1).contiguous(memory_format=torch.channels_last)
+
+    def run(halves: bool, split: bool):
+        state = dp_fresh_state(torch, dev, torch.float32, variant)
+        if split:
+            for name in [n for n, m in state.model.named_modules() if tp_eligible(m, 2, split_min_channels)]:
+                parent, _, leaf = name.rpartition(".")
+                module = state.model.get_submodule(parent) if parent else state.model
+                setattr(module, leaf, SplitConv(getattr(module, leaf)))
+        if halves:
+            state.model = Halves(state.model)
+        return dp_run_steps(torch, dev, state, plain, global_batches, keep_params=True)
+
+    init = [p.detach().to("cpu", torch.float32, copy=True)
+            for p in dp_fresh_state(torch, dev, torch.float32, variant).model.parameters()]
+    split = run(True, True) if split_min_channels is not None else None
+    return init, run(False, False), run(True, False), split
+
+
 def l2_distance(torch, a, b) -> float:
     return math.sqrt(sum(float(torch.linalg.vector_norm(x - y)) ** 2 for x, y in zip(a, b)))
 
@@ -1944,24 +2060,7 @@ def dp_rank_worker(variant: str = "ssd300", device_type: str = "cuda") -> dict:
         if not all(np.array_equal(got[k], want[k][:16]) for k in want):
             raise RuntimeError("phase 3c: the sharded feed's rows are not rank 0's rows of the global batch")
 
-    class Halves(torch.nn.Module):
-        """The model run on each half of the batch: what the two ranks compute."""
-
-        def __init__(self, inner):
-            super().__init__()
-            self.inner = inner
-
-        def forward(self, x):
-            outs = [self.inner(h) for h in x.chunk(2)]
-            return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
-
-    state = dp_fresh_state(torch, dev, torch.float32, variant)
-    init = [p.detach().to("cpu", torch.float32, copy=True) for p in state.model.parameters()]
-    full = dp_run_steps(torch, dev, state, plain, global_batches, keep_params=True)
-    state = dp_fresh_state(torch, dev, torch.float32, variant)
-    state.model = Halves(state.model)
-    halves = dp_run_steps(torch, dev, state, plain, global_batches, keep_params=True)
-    del state
+    init, full, halves, _ = one_process_f32(torch, dev, variant, plain, global_batches)
     f32 = []
     for i, (d, f, h) in enumerate(zip(results["float32"], full, halves)):
         f32.append({
@@ -2127,6 +2226,260 @@ def dp_phase(torch, np, dev, card: str, bare_step_ms: float, variant: str = "ssd
         fail("phase 3c (e): max_pool_2x2 on the card differs from the CPU")
     print(f"phase 3c (e) max_pool_2x2 {b}x{h}x{w}x{c} bf16: value and gradient bit-equal card == CPU")
     return launches
+
+
+DPTP_STEPS = 2  # per precision
+
+
+def same_over(torch, dist, dev, tensors, group) -> bool:
+    """Whether `tensors` are bit-equal on every rank of `group`: its first rank broadcasts
+    them and every rank compares."""
+    mine = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    theirs = mine.clone()
+    dist.broadcast(theirs, src=dist.get_global_rank(group, 0), group=group)
+    same = torch.tensor([float(torch.equal(mine, theirs))], device=dev)
+    dist.all_reduce(same, op=dist.ReduceOp.MIN, group=group)
+    return bool(same.item())
+
+
+def dp_tp_rank_worker(variant: str = "ssd300", device_type: str = "cuda", min_channels: int = 256) -> dict:
+    """One of phase 3d's four ranks, all on cuda:0 over gloo, on a (2, 2) data x model grid
+    (parallel/shardings.py): the variant at full width from the seed-0 weights with its
+    convs of at least `min_channels` output channels column-parallel; 2 float32 steps
+    (TF32 off, deterministic algorithms: each model rank computes the replicated layers
+    itself, so its replicas stay bit-equal only where those round alike) with the replicas
+    compared bit for bit after each, then 2 bf16 steps timed, and one bf16 step's
+    model-axis traffic replayed alone. Rank 0 then runs the float32 steps in one process,
+    whole and as halves, under the same deterministic algorithms, and returns the figures. (A CPU rehearsal passes a small
+    registered variant and the CPU.)"""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ssd_object_detection_tpu_torch.models.ssd import MODEL_SPECS, SSD
+    from ssd_object_detection_tpu_torch.ops import cuda_matcher
+    from ssd_object_detection_tpu_torch.ops.anchors import generate_anchors
+    from ssd_object_detection_tpu_torch.parallel import shardings
+    from ssd_object_detection_tpu_torch.parallel.mesh import replicate
+    from ssd_object_detection_tpu_torch.train.step import StepConfig, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = (torch.device("cuda", torch.cuda.current_device()) if device_type == "cuda"
+           else torch.device("cpu"))
+    mesh = shardings.make_2d_mesh(2, 2, device=dev)
+    spec = MODEL_SPECS[variant]
+    anchors = generate_anchors(spec.anchor_spec)
+    local = dp_batches(np, DPTP_STEPS * 32, 32, spec.image_size, shard=mesh.shard())  # 16 rows each
+    step = make_train_step(anchors, StepConfig(), mesh=mesh)
+
+    def sharded_state(dtype):
+        state = dp_fresh_state(torch, dev, dtype, variant)
+        replicate(state.model, mesh)
+        return state, shardings.shard_state_tp(state, mesh, min_channels)
+
+    def replicated_and_all(state):
+        shards = set(shardings.sharded_parameters(state.model))
+        tensors = [(p in shards, t) for p in state.model.parameters()
+                   for t in (p, state.optimizer.state[p]["exp_avg"], state.optimizer.state[p]["exp_avg_sq"])]
+        return [t for sharded, t in tensors if not sharded], [t for _, t in tensors]
+
+    unequal, unsharded = [], []
+
+    def check(state):  # after each float32 step
+        replicated, every = replicated_and_all(state)
+        if not same_over(torch, dist, dev, replicated, mesh.model_group):
+            unequal.append(f"model axis, step {state.step}")
+        if not same_over(torch, dist, dev, every, mesh.data_group):
+            unequal.append(f"data axis, step {state.step}")
+        full = shardings.unshard_state_dict(state.model, mesh)  # every rank gathers
+        if dist.get_rank() == 0:
+            unsharded.append({k: v.to("cpu", torch.float32, copy=True) for k, v in full.items()})
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    state, names = sharded_state(torch.float32)
+    cuda_matcher.match_anchors_cuda.launches = 0
+    f32 = dp_run_steps(torch, dev, state, step, local, after=check)
+    launches = [cuda_matcher.match_anchors_cuda.launches]
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    del state
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    state, _ = sharded_state(torch.bfloat16)
+    cuda_matcher.match_anchors_cuda.launches = 0
+    bf16 = dp_run_steps(torch, dev, state, step, local)
+    launches.append(cuda_matcher.match_anchors_cuda.launches)
+    bf16_replicas_equal = same_over(torch, dist, dev, replicated_and_all(state)[0], mesh.model_group)
+
+    # one bf16 step's model-axis collectives, recorded, then replayed alone
+    recorded = []
+    real_gather, real_copy = shardings.gather_channels, shardings.copy_to_model
+
+    def gather(x, group):
+        recorded.append(("gather", x.shape, x.dtype))
+        return real_gather(x, group)
+
+    def copy(x, group):
+        recorded.append(("reduce", x.shape, x.dtype))
+        return real_copy(x, group)
+
+    shardings.gather_channels, shardings.copy_to_model = gather, copy
+    try:
+        step(state, local[0], global_batch=32)
+    finally:
+        shardings.gather_channels, shardings.copy_to_model = real_gather, real_copy
+    buffers = [(kind, torch.zeros(shape, dtype=dtype, device=dev)) for kind, shape, dtype in recorded]
+    parts = {id(x): [torch.empty_like(x) for _ in range(mesh.tp_size)] for kind, x in buffers if kind == "gather"}
+    traffic_ms = []
+    for _ in range(4):
+        dp_sync(torch, dev)
+        dist.barrier()
+        t = time.perf_counter()
+        for kind, x in buffers:
+            if kind == "gather":
+                dist.all_gather(parts[id(x)], x, group=mesh.model_group)
+            else:
+                dist.all_reduce(x, group=mesh.model_group)
+        dp_sync(torch, dev)
+        traffic_ms.append((time.perf_counter() - t) * 1e3)
+    traffic_mb = sum(x.numel() * x.element_size() * (mesh.tp_size if kind == "gather" else 1)
+                     for kind, x in buffers) / 1e6
+    del state, buffers, parts
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    counts = torch.tensor(launches, device=dev)
+    all_counts = [torch.empty_like(counts) for _ in range(dist.get_world_size())]
+    dist.all_gather(all_counts, counts)
+
+    dist.barrier()
+    if dist.get_rank() != 0:
+        dist.barrier()
+        return {}
+    # ---- rank 0 alone: the one-process references
+    global_batches = dp_batches(np, DPTP_STEPS * 32, 32, spec.image_size)
+    for got, want in zip(local, global_batches):
+        if not all(np.array_equal(got[k], want[k][:16]) for k in want):
+            raise RuntimeError("phase 3d: data rank 0's rows are not the first rows of the global batch")
+    # under the grid's deterministic algorithms, so the yardstick compares like with like
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    init, full, halves, split = one_process_f32(
+        torch, dev, variant, make_train_step(anchors, StepConfig()), global_batches, min_channels)
+    torch.use_deterministic_algorithms(False)
+    torch.backends.cudnn.deterministic = False
+    with torch.device("meta"):
+        order = [n for n, _ in SSD(num_classes=81, spec=spec).named_parameters()]
+    records = []
+    for i, (d, f, h, sp, u) in enumerate(zip(f32, full, halves, split, unsharded)):
+        grid = [u[n] for n in order]
+        records.append({
+            "step": i + 1, "num_positive": (d["num_positive"], f["num_positive"]),
+            "loss": (d["loss"], f["loss"], h["loss"], sp["loss"]),
+            "param_l2": (l2_distance(torch, grid, f["params"]),
+                         l2_distance(torch, h["params"], f["params"]),
+                         l2_distance(torch, f["params"], init)),
+            "split_l2": (l2_distance(torch, sp["params"], f["params"]), l2_distance(torch, grid, sp["params"])),
+        })
+    out = {"names": names, "f32": records, "unequal": unequal,
+           "launches": [c.tolist() for c in all_counts], "bf16_ms": [r["ms"] for r in bf16],
+           "f32_ms": [r["ms"] for r in f32], "full_ms": [r["ms"] for r in full],
+           "bf16_losses": [r["loss"] for r in bf16], "bf16_replicas_equal": bf16_replicas_equal,
+           "traffic_ms": traffic_ms, "traffic_mb": traffic_mb, "collectives": len(recorded)}
+    dist.barrier()
+    return out
+
+
+def dp_tp_phase(torch, np, dev, card: str, bare_step_ms: float, variant: str = "ssd300",
+                min_channels: int = 256) -> int:
+    """Phase 3d: four ranks spawned by parallel/multihost.py's launch share the card over
+    gloo as a (2, 2) data x model grid; returns their matcher launches."""
+    from ssd_object_detection_tpu_torch.parallel import multihost
+
+    t = time.time()
+    r = multihost.launch(dp_tp_rank_worker, 4, (variant, dev.type, min_channels),
+                         device_type=dev.type, backend="gloo")
+    spawn_s = time.time() - t
+    print(f"phase 3d column-parallel convs at min_channels {min_channels} ({len(r['names'])}): "
+          f"{', '.join(r['names'])}")
+    if r["unequal"]:
+        fail(f"phase 3d: replicas differ after float32 steps: {r['unequal']}")
+    if any(c != [DPTP_STEPS, DPTP_STEPS] for c in r["launches"]):
+        fail(f"phase 3d: matcher launches per rank (float32, bf16) {r['launches']}, want one a step")
+    for s in r["f32"]:
+        (dp, full), (l_dp, l_full, l_half, l_split), (p_dp, p_half, moved) = s["num_positive"], s["loss"], s["param_l2"]
+        if dp != full:
+            fail(f"phase 3d step {s['step']}: num_positive {dp} on the (2, 2) grid, {full} in one process")
+        if abs(l_dp - l_full) > 2 * abs(l_half - l_full) + 1e-6 * abs(l_full) \
+                or p_dp > 2 * p_half + 1e-6 * moved:
+            fail(f"phase 3d step {s['step']}: the (2, 2) grid differs from one process beyond the "
+                 f"yardstick of the same step run as two halves of 16: loss {l_dp} / {l_full} / "
+                 f"{l_half}, param L2 {p_dp} against {p_half} (update {moved})")
+        if s["split_l2"][1] > p_half:
+            fail(f"phase 3d step {s['step']}: the grid is {s['split_l2'][1]} from one process running "
+                 f"its arithmetic (halves, channel-split convs), farther than the halves are from one "
+                 f"process ({p_half})")
+        print(f"phase 3d float32 step {s['step']} (TF32 off, deterministic): num_positive {dp:.0f} = "
+              f"one process; loss (2, 2) grid {l_dp:.7f}, one process {l_full:.7f}, as two halves "
+              f"{l_half:.7f}; unsharded param L2 distance to one process: grid {p_dp:.3e}, halves "
+              f"{p_half:.3e} (the step moved them {moved:.3e}); one process as halves with the "
+              f"column-parallel convs as two halves of their channels (the grid's arithmetic): loss "
+              f"{l_split:.7f}, distance to one process {s['split_l2'][0]:.3e}, the grid's distance "
+              f"to it {s['split_l2'][1]:.3e}")
+    print(f"phase 3d float32: replicated parameters and Adam moments bit-equal across the model "
+          f"ranks, and every parameter and moment across the data ranks, after each of the "
+          f"{DPTP_STEPS} steps; matcher launches per rank {r['launches']} (one a step); bf16 "
+          f"losses {[round(x, 4) for x in r['bf16_losses']]}, replicas after the bf16 steps "
+          f"(cuDNN's default algorithms) {'bit-equal' if r['bf16_replicas_equal'] else 'NOT bit-equal'}")
+    print(f"phase 3d timing on {card} (four processes on one card, gloo through the host; a cost "
+          f"figure, not a scaling figure): (2, 2) bf16 step {statistics.median(r['bf16_ms'][1:]):.2f} ms "
+          f"(steps {[round(x, 2) for x in r['bf16_ms']]}), float32 {[round(x, 2) for x in r['f32_ms']]}; "
+          f"one process bf16 {bare_step_ms:.2f} ms (phase 3), float32 {[round(x, 2) for x in r['full_ms']]}; "
+          f"one bf16 step's gather_channels + copy_to_model traffic ({r['collectives']} collectives, "
+          f"{r['traffic_mb']:.1f} MB) {statistics.median(r['traffic_ms']):.2f} ms (median of "
+          f"{len(r['traffic_ms'])} replays); spawn to result {spawn_s:.1f} s")
+    return sum(sum(c) for c in r["launches"])
+
+
+def dryrun_phase(dev) -> None:
+    """Phase 3e: cli/dryrun.py's dry run over 4 ranks sharing the card over gloo."""
+    from ssd_object_detection_tpu_torch.cli.dryrun import dryrun_multichip
+
+    r = dryrun_multichip(4, device=dev.type, backend="gloo")
+    if r["tp_loss"] is None or abs(r["tp_loss"] - r["dp_loss"]) >= 1e-3 or len(r["legs"]) != 5:
+        fail(f"phase 3e: dry run result {r}")
+    print(f"phase 3e dry run, 4 gloo ranks on one card: legs "
+          f"{', '.join(f'{name} {s:.2f} s' for name, s in r['legs'])}; dp loss {r['dp_loss']:.6f}, "
+          f"dp x tp loss {r['tp_loss']:.6f}, {r['detections']} detections, wall {r['wall_s']:.1f} s")
+
+
+def bench_phase(torch, np, dev, card: str) -> None:
+    """Phase 7d: cli/bench.py at its defaults (its JSON line printed by it), and
+    flops_analysis of the SSD300 bf16 and PTQ forwards at batch 32 against the sum over
+    the convs reckoned from their shapes."""
+    from ssd_object_detection_tpu_torch.cli import bench
+    from ssd_object_detection_tpu_torch.models.ssd import SSD, SSD300_SPEC_MODEL
+    from ssd_object_detection_tpu_torch.ops.quant import quantize_synthetic
+    from ssd_object_detection_tpu_torch.utils.introspect import flops_analysis
+
+    result = bench.main([])
+    print(f"phase 7d bench on {card}: int8 {result['value']} img/s, bf16 "
+          f"{result['bf16_images_per_sec']} img/s (batch {bench.BATCH}, {bench.PIPELINE} batches a "
+          f"round, {bench.BENCH_ITERS} timed rounds; the 2,000 img/s baseline is an A100 estimate)")
+    model = SSD(num_classes=81, spec=SSD300_SPEC_MODEL, dtype=torch.bfloat16, conf_f32=False)
+    model = model.init_weights(torch.Generator().manual_seed(0)).to(dev).eval()
+    qmodel, n = quantize_synthetic(model, (32, 300, 300, 3), include_heads=True)
+    x = torch.rand((32, 300, 300, 3), generator=torch.Generator().manual_seed(0)).to(dev) * 2 - 1
+    want = reckoned_conv_flops(SSD300_SPEC_MODEL, 32, 81)
+    with torch.no_grad():
+        got = {"bf16": flops_analysis(model, x)["flops"], "ptq": flops_analysis(qmodel, x)["flops"]}
+    if any(v != want for v in got.values()):
+        fail(f"phase 7d: flops_analysis {got} against {want} reckoned from the conv shapes")
+    print(f"phase 7d flops_analysis SSD300 forward, batch 32: bf16 {got['bf16'] / 1e12:.4f} TFLOP, "
+          f"PTQ ({n} int8 convs) {got['ptq'] / 1e12:.4f} TFLOP, both = the sum over the convs "
+          f"reckoned from their shapes ({want})")
 
 
 # torch.profiler kernel-name fragments for the R34 and MNV2 train steps, first match wins

@@ -44,7 +44,7 @@ def _fetch_detections(det, mesh=None):
     ], dim=-1)
     if mesh is not None:
         parts = [torch.empty_like(packed) for _ in range(mesh.size)]
-        dist.all_gather(parts, packed.contiguous())
+        dist.all_gather(parts, packed.contiguous(), group=mesh.data_group)
         packed = torch.cat(parts)
     packed = packed.cpu().numpy()
     return (packed[..., :4], packed[..., 4], packed[..., 5].astype(np.int32),

@@ -25,7 +25,9 @@ and the loss is still the JAX loss of the whole (global) batch, whose GSPMD sort
     the ranks gives the global gradient (train/step.py);
   - the returned LossInfo holds the global values, equal on every rank, and carries the
     gradient of this rank's term.
-Canonical mode mines per image, so it needs only the global normalisers.
+Canonical mode mines per image, so it needs only the global normalisers. Every collective
+runs on the mesh's data group: on a 2-D mesh (parallel/shardings.py) the model ranks of a
+data rank hold the same rows, and over the default group they would count tp times.
 """
 
 from __future__ import annotations
@@ -91,7 +93,7 @@ def multibox_loss(
             raise ValueError(f"rank {mesh.rank} of {mesh.size} holds {gt_mask.shape[0]} rows; "
                              f"its share of a global batch of {global_batch} is "
                              f"{mesh.shard().count(global_batch)}")
-    global_num_pos = num_pos if mesh is None or canonical else all_reduce_sum(num_pos)
+    global_num_pos = num_pos if mesh is None or canonical else all_reduce_sum(num_pos, mesh.data_group)
 
     ce_pos_sum = (_softmax_ce(pred_logits, gt_cls) * pos).sum()
 
@@ -112,7 +114,7 @@ def multibox_loss(
         else:
             total = global_batch * ce_bg.shape[1]
             flat = all_gather_padded(flat, math.ceil(global_batch / mesh.size) * ce_bg.shape[1],
-                                     fill=-math.inf)
+                                     fill=-math.inf, group=mesh.data_group)
         k = (neg_pos_ratio * global_num_pos).to(torch.int32)
         k = torch.clamp(k, 0, total)
         sorted_desc = torch.sort(flat, descending=True).values
@@ -133,7 +135,7 @@ def multibox_loss(
 
     sums = (num_pos, ce_pos_sum, loc_sum, num_neg, neg_sum)
     if mesh is not None:
-        sums = all_reduce_sum(torch.stack([x.detach() for x in sums])).unbind()
+        sums = all_reduce_sum(torch.stack([x.detach() for x in sums]), mesh.data_group).unbind()
     g_num_pos, g_pos_sum, g_loc_sum, g_num_neg, g_neg_sum = sums
     safe_pos = torch.clamp(g_num_pos, min=1.0)
     safe_neg = torch.clamp(g_num_neg, min=1.0)

@@ -3,9 +3,10 @@
 `conv3x3_bias_relu(x, kernel, bias, relu=True, pool=False)` is the public op, with the
 JAX layouts: x (B, H, W, IC) NHWC, kernel (3, 3, IC, OC) HWIO, bias (OC,). Its forward
 launches the hand-written CUDA kernel (ops/cuda_conv.py, csrc/conv3x3.cu) for CUDA
-tensors and runs the plain version for CPU tensors. Its backward is autograd of the
-plain version, recomputed from the saved (x, kernel, bias), as the JAX op's custom VJP
-is the VJP of its XLA reference.
+tensors and runs the plain version for CPU tensors, through the operator
+`torch.ops.ssd_torch.conv3x3_bias_relu`. Its backward is autograd of the plain version,
+recomputed from the saved (x, kernel, bias), as the JAX op's custom VJP is the VJP of its
+XLA reference.
 
 No model calls this op, as in the JAX package (docs/DESIGN.md): the port's VGG keeps
 F.conv2d. The JAX row-tile picker (`_pick_row_tile`) sizes the TPU's VMEM and has no
@@ -39,14 +40,24 @@ def conv3x3_plain(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor,
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+@torch.library.custom_op("ssd_torch::conv3x3_bias_relu", mutates_args=())
+def conv3x3_op(x: torch.Tensor, kernel: torch.Tensor, bias: torch.Tensor, relu: bool,
+               pool: bool) -> torch.Tensor:
+    """The forward as an operator (utils/introspect.py counts its FLOPs): the plain version
+    for a CPU tensor, the CUDA wrapper (which refuses what is not on the card) otherwise."""
+    if x.device.type == "cpu":
+        return conv3x3_plain(x, kernel, bias, relu, pool)
+    return conv3x3_forward_cuda(x, kernel, bias, relu, pool)
+
+
 class _Conv3x3BiasRelu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, kernel, bias, relu, pool):
         ctx.save_for_backward(x, kernel, bias)
         ctx.relu, ctx.pool = relu, pool
-        if x.device.type == "cpu":
-            return conv3x3_plain(x, kernel, bias, relu, pool)
-        return conv3x3_forward_cuda(x, kernel, bias, relu, pool)
+        if x.device.type not in ("cpu", "cuda"):  # the wrapper refuses it
+            return conv3x3_forward_cuda(x, kernel, bias, relu, pool)
+        return torch.ops.ssd_torch.conv3x3_bias_relu(x, kernel, bias, relu, pool)
 
     @staticmethod
     def backward(ctx, grad):

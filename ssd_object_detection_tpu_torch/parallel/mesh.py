@@ -14,6 +14,12 @@ is, for each micro-batch in order, its share of that micro-batch: rows
 most one row, lower ranks hold the larger ones, a rank may hold none (a micro-batch
 smaller than the ranks), and each rank's local batch splits into `accum_steps` equal
 micro-batches again.
+
+A 2-D mesh (parallel/shardings.py::make_2d_mesh) adds a model axis: the ranks that share
+one data rank hold the same rows, and the wide convs split their output channels over
+them. `rank` and `size` are then the data axis's, read from `data_group`; the 1-D mesh is
+the case `tp_size == 1`, whose data group is the default group (`None` to
+torch.distributed).
 """
 
 from __future__ import annotations
@@ -58,12 +64,17 @@ class RowShard:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """The data-parallel default process group: this process's rank in it, its size, and
-    the device this rank computes on."""
+    """This process's place in the mesh: its rank on the data axis and the axis's size,
+    the device it computes on, and, on a 2-D mesh, the groups of its data and model axes
+    and its rank on the model axis. A group of None is the default group."""
 
     rank: int
     size: int
     device: torch.device
+    data_group: Optional[Any] = None
+    model_group: Optional[Any] = None
+    tp_rank: int = 0
+    tp_size: int = 1
 
     def shard(self, accum_steps: int = 1) -> RowShard:
         return RowShard(self.rank, self.size, accum_steps)

@@ -14,10 +14,12 @@ torch.nn.utils.clip_grad_norm_, which clips the global norm.
 
 from __future__ import annotations
 
-from typing import Callable, Iterable
+from typing import Any, Callable, Iterable, Optional, Sequence
 
 import numpy as np
 import torch
+
+from ssd_object_detection_tpu_torch.parallel.collectives import all_reduce_sum_
 
 Schedule = Callable[[int], float]
 
@@ -46,10 +48,23 @@ def polynomial_decay(start: float, decay_steps: int, end: float, power: float = 
 
 
 @torch.no_grad()
-def clip_by_norm_per_tensor(grads: Iterable[torch.Tensor], max_norm: float = 0.01) -> None:
-    """tf.clip_by_norm on each tensor, in place: g * max_norm / max(||g||_2, max_norm)."""
-    for g in grads:
-        norm = g.float().square().sum().sqrt()
+def clip_by_norm_per_tensor(grads: Iterable[torch.Tensor], max_norm: float = 0.01,
+                            sharded: Optional[Sequence[bool]] = None, group: Optional[Any] = None) -> None:
+    """tf.clip_by_norm on each tensor, in place: g * max_norm / max(||g||_2, max_norm).
+
+    A tensor flagged in `sharded` is one shard of a tensor split over the ranks of
+    `group` (a model group, parallel/shardings.py): its norm is the whole tensor's, the
+    shards' sums of squares summed over the group (one all-reduce for all of them)."""
+    grads = list(grads)
+    squares = [g.float().square().sum() for g in grads]
+    if sharded is not None and any(sharded):
+        which = [i for i, s in enumerate(sharded) if s]
+        summed = torch.stack([squares[i] for i in which])
+        all_reduce_sum_([summed], group)
+        for i, total in zip(which, summed.unbind()):
+            squares[i] = total
+    for g, square in zip(grads, squares):
+        norm = square.sqrt()
         # a tensor numerator: `float / tensor` is a multiply by the reciprocal (two roundings)
         g.mul_(torch.full_like(norm, max_norm) / torch.clamp(norm, min=max_norm))
 

@@ -21,6 +21,10 @@ rank with no row of a micro-batch joins its collectives with a zero gradient and
 launches no matcher. Every rank then applies the same update to the same parameters,
 so parameters and optimizer state stay bit-equal across the ranks. DistributedDataParallel
 is not used: it averages, and it reduces before the clip could see the sum.
+
+On a 2-D mesh (parallel/shardings.py) the gradient sum runs over the data group (the model
+ranks of a data rank hold the same rows), and the clip takes each sharded tensor's norm
+over its model group; everything else is as above: sum, then clip, then accumulate.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from ssd_object_detection_tpu_torch.losses import LossInfo, multibox_loss
 from ssd_object_detection_tpu_torch.ops import augment
 from ssd_object_detection_tpu_torch.ops.matching import build_targets
 from ssd_object_detection_tpu_torch.parallel.collectives import all_reduce_sum_
+from ssd_object_detection_tpu_torch.parallel.shardings import sharded_parameters
 from ssd_object_detection_tpu_torch.train.optim import Schedule, clip_by_norm_per_tensor
 from ssd_object_detection_tpu_torch.utils.device import true_divide
 
@@ -122,6 +127,10 @@ def make_train_step(anchors: np.ndarray, cfg: StepConfig = StepConfig(), mesh=No
                    global_batch: Optional[int] = None) -> Dict[str, torch.Tensor]:
         params = [p for p in state.model.parameters() if p.requires_grad]
         device = params[0].device
+        sharded, model_group = None, None
+        if mesh is not None and mesh.tp_size > 1:
+            shards = set(sharded_parameters(state.model))
+            sharded, model_group = [p in shards for p in params], mesh.model_group
         if device not in anchors_on:
             anchors_on[device] = torch.as_tensor(anchors_np).to(device).contiguous()
         anchors_t = anchors_on[device]
@@ -159,8 +168,8 @@ def make_train_step(anchors: np.ndarray, cfg: StepConfig = StepConfig(), mesh=No
             else:
                 grads = [torch.zeros_like(p) for p in params]
             if mesh is not None:  # the global micro-batch's gradient, then its clip
-                all_reduce_sum_(grads)
-            clip_by_norm_per_tensor(grads, cfg.clip_norm)
+                all_reduce_sum_(grads, mesh.data_group)
+            clip_by_norm_per_tensor(grads, cfg.clip_norm, sharded, model_group)
             info = LossInfo(*(x.detach() for x in info))
             if sum_grads is None:
                 sum_grads, sum_info = grads, info

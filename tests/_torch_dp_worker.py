@@ -3,6 +3,11 @@
     python tests/_torch_dp_worker.py steps <inputs.pt> <out.pt>
         two gloo ranks (parallel/multihost.py::launch) run every case of inputs.pt
         (train steps and an evaluation) under a mesh; rank r writes <out.pt>.r<r>
+    python tests/_torch_dp_worker.py tp <inputs.pt> <out.pt>
+        four gloo ranks on a (2, 2) data x model mesh (parallel/shardings.py) run every
+        train-step case of inputs.pt and one column-parallel conv; rank r writes <out.pt>.r<r>
+    python tests/_torch_dp_worker.py dryrun <n>
+        cli/dryrun.py::dryrun_multichip(n) on the CPU; prints "DRYRUN <json>" of its result
     python tests/_torch_dp_worker.py train <cli.train arguments...>
         cli.train, which spawns its own ranks (or, started by torchrun, joins its group);
         prints "HISTORY <json>" of rank 0
@@ -118,12 +123,74 @@ def run_cases(inputs_path: str, out_path: str) -> None:
     torch.save(out, f"{out_path}.r{dist.get_rank()}")
 
 
+def run_tp_cases(inputs_path: str, out_path: str) -> None:
+    """One rank of a (2, 2) mesh: every train-step case of inputs.pt with the wide convs
+    column-parallel, then one ColumnParallelConv2d against the whole conv."""
+    import torch.distributed as dist
+
+    from ssd_object_detection_tpu_torch.models.vgg import conv_pads, float_conv
+    from ssd_object_detection_tpu_torch.parallel.mesh import replicate
+    from ssd_object_detection_tpu_torch.parallel.shardings import (
+        ColumnParallelConv2d, make_2d_mesh, shard_batch_2d, shard_state_tp, unshard_state_dict,
+    )
+    from ssd_object_detection_tpu_torch.train.optim import make_optimizer
+    from ssd_object_detection_tpu_torch.train.step import StepConfig, TrainState, make_train_step
+
+    inputs = torch.load(inputs_path, weights_only=False)
+    mesh = make_2d_mesh(2, 2)
+    out = {"forbidden": forbidden_modules(), "coords": (mesh.rank, mesh.tp_rank)}
+    for case in inputs["cases"]:
+        model = replicate(_model(inputs, inputs["state_dict"]), mesh)
+        state = TrainState(model=model, optimizer=make_optimizer("adam", model.parameters()),
+                           schedule=lambda step: 1e-3)
+        names = shard_state_tp(state, mesh, inputs["min_channels"])
+        step = make_train_step(inputs["anchors"], StepConfig(accum_steps=case["accum"]), mesh=mesh)
+        metrics = step(state, shard_batch_2d(inputs["batch"], mesh, case["accum"]))
+        opt = state.optimizer
+        out[case["name"]] = {
+            "metrics": {k: float(v) for k, v in metrics.items()}, "names": names,
+            "unsharded": unshard_state_dict(model, mesh),
+            "params": {k: v.detach().clone() for k, v in model.state_dict().items()},
+            "moments": {n: (opt.state[p]["exp_avg"].clone(), opt.state[p]["exp_avg_sq"].clone())
+                        for n, p in model.named_parameters()},
+        }
+
+    gen = torch.Generator().manual_seed(0)  # the same conv, input and gradient on every rank
+    conv = torch.nn.Conv2d(16, 32, 3)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * 0.1)
+        conv.bias.copy_(torch.randn(conv.bias.shape, generator=gen))
+    x = torch.randn(2, 16, 9, 11, generator=gen).contiguous(memory_format=torch.channels_last)
+    grad = torch.randn(2, 32, 9, 11, generator=gen)
+    pads = conv_pads(x, conv, "SAME")
+    cp = ColumnParallelConv2d(conv, mesh)
+    xs, xf = x.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    y = cp.conv_nchw(xs, pads, torch.float32)
+    y.backward(grad)
+    want = float_conv(xf, conv, pads, torch.float32)
+    want.backward(grad)
+    lo, hi = cp.shard
+    out["cp_conv"] = {
+        "y": y.detach(), "y_want": want.detach(), "dx": xs.grad, "dx_want": xf.grad,
+        "dw": cp.weight.grad, "dw_want": conv.weight.grad[lo:hi], "db": cp.bias.grad,
+        "db_want": conv.bias.grad[lo:hi], "channels_last": y.is_contiguous(memory_format=torch.channels_last),
+    }
+    torch.save(out, f"{out_path}.r{dist.get_rank()}")
+
+
 if __name__ == "__main__":
     from ssd_object_detection_tpu_torch.parallel import multihost
 
     mode, rest = sys.argv[1], sys.argv[2:]
     if mode == "steps":
         multihost.launch(run_cases, 2, (rest[0], rest[1]), device_type="cpu")
+    elif mode == "tp":
+        multihost.launch(run_tp_cases, 4, (rest[0], rest[1]), device_type="cpu")
+    elif mode == "dryrun":
+        from ssd_object_detection_tpu_torch.cli.dryrun import dryrun_multichip
+
+        result = dryrun_multichip(int(rest[0]), device="cpu")
+        print("DRYRUN " + json.dumps(result), flush=True)
     elif mode == "train":
         from ssd_object_detection_tpu_torch.cli import train
 
