@@ -108,16 +108,17 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      COCO-sized JPEGs: 4:2:0, 4:2:2, 4:4:4, gray, restart markers, q75 optimised tables,
      Exif 6, progressive, 4:1:1, CMYK; and ROOT_EXTRAS: an RLE8 BMP, a PPM, a Sun raster,
      a JPEG cut and ended by EOI, a progressive JPEG libjpeg smooths, a GIF, an HDR, a
-     16-bit PAM, cv2's 640x480 LZW TIFF, a planar TIFF, a big-endian BigTIFF and a CMYK
-     Deflate TIFF), in turn,
+     16-bit PAM, cv2's 640x480 LZW TIFF, a planar TIFF, a big-endian BigTIFF, a CMYK
+     Deflate TIFF and a 4:2:0 JPEG-in-TIFF of 16-row strips), in turn, then an LZMA TIFF,
      under distinct ids with boxes written here: `cli.train` packs it on the card
      (data/packed.py::pack_dataset through the decode feed, no cv2) and trains SSD300-VGG16
      from the cache at batch 32, bf16, 2 steps with the matcher once a step; every packed
      image equals cv2's recorded 300x300 digest; one decode an image (K1, a K6 launch a
      refinement round, K7 where libjpeg smooths, then the fused K2 + K3; K9 then K8 for a
-     GIF; K9 where it has LZW chunks, K10 and K8 for a TIFF; K8 for the other formats) and
-     one resize; then that root with a JPEG-in-TIFF in place of an image: the feed refuses
-     it naming the file;
+     GIF; K9 where it has LZW chunks, K1 and the fused K2 + K3 where it has JPEG chunks,
+     K10 and K8 for a TIFF; K8 for the other formats) and one resize; an LZMA TIFF in the
+     root skipped (cv2.imread returns None for it); then that root with a CCITT Group 4
+     TIFF in place of an image: the feed refuses it naming the file;
   5. the fused conv3x3 op's own path (no model calls it, as in the JAX package):
      conv3x3_bias_relu at the three VGG trunk shapes it fuses (batch 32, bf16, the
      wgmma kernel), at the seams of that kernel's tiles (ragged rows and columns, tile
@@ -154,23 +155,28 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      seams at widths and heights 1-33, restart intervals of 1 MCU and past the image,
      Exif orientations 1-8, corrupt JPEGs libjpeg decodes with warnings, progressive ones
      it smooths, PNGs of each colour type, depth and Adam7, GIFs and HDRs at the edges
-     of cv2's readers, TIFFs and BigTIFFs, BMP, PxM, PAM, Sun raster and PFM variants)
+     of cv2's readers, TIFFs and BigTIFFs, JPEG-in-TIFFs, BMP, PxM, PAM, Sun raster and
+     PFM variants, all in one decode_images call: the JPEG-in-TIFFs' chunks in the JPEGs'
+     launches, one of the fused K2 + K3)
      decoded on the card equal to
      cv2's recorded digests, as are its
      300x300 linear resize and, past the serving canvas, its INTER_AREA fit; K1 and K6
      step by step, K7 and the fused K2 + K3 bit-equal to their plain versions on one batch
-     of every JPEG fixture, K4 (uint8 and float32 linear, area), K5 (every PNG fixture
+     of every JPEG fixture, K4 (uint8 and float32 linear, area; every fixture's 300x300
+     resize also through resize_batch, a launch a 128 images), K5 (every PNG fixture
      alone and all in one call), K9 (every GIF fixture and every TIFF fixture's LZW chunks
      in one launch, status and output), K10 (every TIFF fixture's chunks in one launch)
      and K8 bit-equal to theirs; the fixtures the port still refuses (AVIF by either
-     brand, JPEG-in-TIFF, CCITT Group 4, PAMs with alpha, a 1-channel PFM) refused, those cv2
+     brand, CCITT Group 4, uncompressed YCbCr, PAMs with alpha, a 1-channel PFM) refused, those cv2
      returns None for and a JPEG cut with no marker after the cut ValueErrors; then each
      kernel at the main path's
      shapes (32 copies of the 640x480 4:2:0 JPEG for K1 and K2 + K3, K1 on one copy and
      K2 + K3 on one copy, the CMYK, 4:4:4 and Exif-6 JPEGs, beside its operations and
      bytes bounds, K6 on the
      refinement scans of 32 copies of the 640x480 progressive JPEG from K1's output, K7
-     on 32 copies of that JPEG cut in its fifth scan, the 300x300 resize, a 640x480 PNG
+     on 32 copies of that JPEG cut in its fifth scan, the 300x300 resize (also from a
+     CUDA graph, its host time, 32 in one launch; float32 and INTER_AREA beside
+     F.interpolate's bilinear and area), a 640x480 PNG
      and 32 of them in one call, a 640x480 BMP for K8, a 640x480 GIF written here with
      the fixture tool's LZW encoder and 32 of them in one launch for K9, with K9's
      windows, segments, codes, ns a code and time by phase from its clock64 counters,
@@ -229,7 +235,7 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      POSTed and answered as DetectorService.detect_images answers the decoder's pixels,
      which equal cv2's digests (progressive, CMYK, YCCK, 4:1:1, corrupt and smoothed
      JPEG bodies, GIF, TIFF, HDR, BMP, PxM, PAM, Sun raster and PFM bodies among them);
-     the refused fixtures (AVIF by either brand, JPEG-in-TIFF, CCITT Group 4, PAMs with
+     the refused fixtures (AVIF by either brand, CCITT Group 4, uncompressed YCbCr, PAMs with
      alpha, a 1-channel PFM)
      415, those cv2 returns None for and bytes that are no image 400; 32 clients x 4
      posts of the 640x480 JPEG (img/s, p50, p99);
@@ -2025,8 +2031,9 @@ def decode_stages_ms(torch, dev, codec, cuda_image, blobs, repeats: int = 7) -> 
     """The decode + 300x300 resize of `blobs` (JPEGs) by stage, in one loop with its
     end-to-end time, both warm: each repeat runs the staged pass (the marker walk, the
     unstuffing and restart split inside it, the layout, the upload with the stream
-    synchronised, K1-K3 with the status read, the resizes with the stream synchronised)
-    and the unstaged pass (codec.decode_images, then the resizes), in turns, the first
+    synchronised, K1-K3 with the status read, the resizes (cuda_image.resize_batch: one
+    K4 launch) with the stream synchronised) and the unstaged pass (codec.decode_images,
+    then the resizes), in turns, the first
     order alternating. Returns ({stage: mean ms}, mean ms of the staged pass, mean ms of
     the unstaged pass): means, so that the stages add up, to at most the staged pass's
     time as in every pass."""
@@ -2052,8 +2059,7 @@ def decode_stages_ms(torch, dev, codec, cuda_image, blobs, repeats: int = 7) -> 
         imgs, status = cuda_image.decode_jpeg_batch(batch)
         int(status.sum())  # the warnings read back, as a caller that reports them would
         marks.append(time.perf_counter())
-        for img in imgs:
-            cuda_image.resize(img, (300, 300))
+        cuda_image.resize_batch(imgs, [(300, 300)] * len(imgs))
         torch.cuda.synchronize()
         marks.append(time.perf_counter())
         walk = (marks[1] - marks[0]) - spent[0]
@@ -2061,8 +2067,8 @@ def decode_stages_ms(torch, dev, codec, cuda_image, blobs, repeats: int = 7) -> 
 
     def unstaged():
         t = time.perf_counter()
-        for img in codec.decode_images(blobs, dev):
-            cuda_image.resize(img, (300, 300))
+        imgs = codec.decode_images(blobs, dev)
+        cuda_image.resize_batch(imgs, [(300, 300)] * len(imgs))
         torch.cuda.synchronize()
         return time.perf_counter() - t
 
@@ -2087,6 +2093,81 @@ def decode_stages_ms(torch, dev, codec, cuda_image, blobs, repeats: int = 7) -> 
         codec._split_entropy = split
     return ({k: statistics.fmean(v) for k, v in stages.items()}, statistics.fmean(staged_s) * 1e3,
             statistics.fmean(unstaged_s) * 1e3)
+
+
+def decode_tiff(codec, cuda_image, tif, device):
+    """One parsed TIFF through the kernels on `device`: its JPEG chunks (if any) through K1
+    (K6, K7) and the fused K2 + K3 in one batch, then K9, K10 and K8."""
+    chunks = codec.tiff_jpeg_chunks([tif])
+    pixels = None
+    if chunks:
+        batch = codec.jpeg_batch(chunks)
+        batch = batch.to(device) if device.type == "cuda" else batch
+        pixels = cuda_image.idct_color(cuda_image.decode_entropy(batch)[0], batch)
+    return cuda_image.decode_lzw_batch([], [tif], device, pixels)[0]
+
+
+def resize_report(torch, np, cuda_image, dev, one, ms: float, b2b: float, bound: float, plain_ms: float) -> tuple:
+    """K4 beyond its per-call time on one 640x480 -> 300x300 uint8 image (`one`): from a
+    CUDA graph (the card alone), the wrapper's host time a call, 32 images in one launch
+    (resize_batch: per call, back to back, from a graph) against 32 bounds; float32 linear
+    on one image and 32, and INTER_AREA at a whole-number factor (1280x960 -> 640x480),
+    each beside the one PyTorch call that computes the same function
+    (F.interpolate: bilinear, align_corners=False; area), the largest difference from
+    it, and every output equal to the plain version's. Returns (the text, F.interpolate's
+    ms for the float32 image: the kernels line's library_ms)."""
+    F = torch.nn.functional
+    graph = graph_ms(torch, lambda: cuda_image.resize(one, (300, 300)))
+    host = enqueue_us(torch, lambda: cuda_image.resize(one, (300, 300)))
+    many = [one.clone() for _ in range(32)]
+    sizes = [(300, 300)] * 32
+    batch32 = lambda: cuda_image.resize_batch(many, sizes)  # noqa: E731
+    before = cuda_image.resize.launches
+    got = batch32()
+    if cuda_image.resize.launches != before + 1:
+        fail("resize_batch of 32 images took more than one launch")
+    want = cuda_image.resize(one.cpu(), (300, 300))
+    if not all(torch.equal(g.cpu(), want) for g in got):
+        fail("resize_batch of 32 images differs from the plain version")
+    ms32, b2b32, graph32 = (cuda_ms(torch, batch32, warmup=2, iters=10), stream_ms(torch, batch32, warmup=1, iters=10),
+                            graph_ms(torch, batch32))
+    host32 = enqueue_us(torch, batch32)
+    f1 = one.float() / 255
+    f32s = [f1.clone() for _ in range(32)]
+    nchw1 = f1.permute(2, 0, 1)[None].contiguous()
+    nchw32 = nchw1.expand(32, -1, -1, -1).contiguous()
+    k4_f1 = lambda: cuda_image.resize(f1, (300, 300))  # noqa: E731
+    k4_f32 = lambda: cuda_image.resize_batch(f32s, sizes)  # noqa: E731
+    lib_f1 = lambda: F.interpolate(nchw1, size=(300, 300), mode="bilinear", align_corners=False)  # noqa: E731
+    lib_f32 = lambda: F.interpolate(nchw32, size=(300, 300), mode="bilinear", align_corners=False)  # noqa: E731
+    if not torch.equal(k4_f1().cpu(), cuda_image.resize(f1.cpu(), (300, 300))):
+        fail("float32 linear resize of the 640x480 image differs from the plain version")
+    f_diff = float((k4_f1().permute(2, 0, 1) - lib_f1()[0]).abs().max())
+    times = {k: (cuda_ms(torch, fn, warmup=2, iters=10), stream_ms(torch, fn, warmup=1, iters=10))
+             for k, fn in (("k4_f1", k4_f1), ("lib_f1", lib_f1), ("k4_f32", k4_f32), ("lib_f32", lib_f32))}
+    big = torch.from_numpy(np.random.default_rng(6).integers(0, 256, (960, 1280, 3), dtype=np.uint8)).to(dev)
+    big_f = big.float().permute(2, 0, 1)[None].contiguous()
+    k4_area = lambda: cuda_image.resize(big, (480, 640), "area")  # noqa: E731
+    lib_area = lambda: F.interpolate(big_f, size=(480, 640), mode="area")  # noqa: E731
+    if not torch.equal(k4_area().cpu(), cuda_image.resize(big.cpu(), (480, 640), "area")):
+        fail("the INTER_AREA fit 1280x960 -> 640x480 differs from the plain version")
+    area_diff = float((k4_area().float().permute(2, 0, 1) - lib_area()[0].round()).abs().max())
+    area_ms, lib_area_ms = cuda_ms(torch, k4_area, warmup=2, iters=10), cuda_ms(torch, lib_area, warmup=2, iters=10)
+    area_bound = (960 * 1280 * 3 + 480 * 640 * 3) / HBM_BYTES_PER_S * 1e3
+    f_bound = (640 * 480 * 3 + 300 * 300 * 3) * 4 / HBM_BYTES_PER_S * 1e3
+    text = (f"; from a CUDA graph (the card alone) {graph:.4f} ms a call; the wrapper's host time {host:.1f} us a "
+            f"call; 32 images in one launch (resize_batch) {ms32:.4f} ms a call, {b2b32:.4f} back to back, "
+            f"{graph32:.4f} from a graph, host {host32:.1f} us a call (bound {32 * bound:.6f} ms, "
+            f"{32 * bound / graph32 * 100:.3f} % of it from the graph; {32 * ms / ms32:.1f} x 32 single calls' "
+            f"time); float32 linear, one image: K4 {times['k4_f1'][0]:.4f} ms a call, {times['k4_f1'][1]:.4f} back "
+            f"to back, F.interpolate (bilinear) {times['lib_f1'][0]:.4f}, {times['lib_f1'][1]:.4f} (bound "
+            f"{f_bound:.6f} ms; largest difference from K4 {f_diff:.3e}, the order of operations); 32 images: K4 "
+            f"{times['k4_f32'][0]:.4f}, {times['k4_f32'][1]:.4f}; F.interpolate {times['lib_f32'][0]:.4f}, "
+            f"{times['lib_f32'][1]:.4f} (bound {32 * f_bound:.6f}); INTER_AREA 1280x960 -> 640x480 uint8: K4 "
+            f"{area_ms:.4f} ms a call, F.interpolate (area, float32) {lib_area_ms:.4f} (bound {area_bound:.6f} ms "
+            f"for K4's bytes; largest difference from the rounded float mean {area_diff:.0f}); timed outputs "
+            f"equal the plain version's")
+    return text, times["lib_f1"][0]
 
 
 def gif_640x480(np, fx, rgb) -> bytes:
@@ -2174,7 +2255,19 @@ def image_phase(torch, np, dev, card: str) -> dict:
         if not torch.equal(got.cpu(), want):
             fail(f"{name}: the kernel differs from its plain version in {(got.cpu() != want).sum().item()} values")
         err[name] = float((got.cpu().int() - want.int()).abs().max())
+    before = {k: w.launches for k, w in image_wrappers().items()}
     decoded = codec.decode_images([blobs[n] for n in names], dev)
+    batch_launches = {k: w.launches - before[k] for k, w in image_wrappers().items()}
+    jpeg_tiffs = [n for n in names if n.startswith("tiff_jpeg_")]
+    if batch_launches["jpeg_idct_color"] != 1 or not jpeg_tiffs:
+        fail(f"every fixture in one decode_images call: {batch_launches['jpeg_idct_color']} launches of the fused "
+             f"K2 + K3, expected one for the JPEGs and the JPEG-in-TIFFs' chunks together")
+    # the 300x300 resize of every decoded fixture through resize_batch (a launch a 128 images of mixed shapes)
+    before_k4 = cuda_image.resize.launches
+    batched = cuda_image.resize_batch(decoded, [(300, 300)] * len(decoded))
+    k4_batch_launches = cuda_image.resize.launches - before_k4
+    if k4_batch_launches != -(-len(decoded) // cuda_image.RESIZE_MAX_ITEMS):
+        fail(f"resize_batch of {len(decoded)} fixtures took {k4_batch_launches} launches")
     resize_err, png_err, raw_err, seams = 0.0, 0, 0, 0
     for n, img in zip(names, decoded):
         e = images[n]
@@ -2182,8 +2275,9 @@ def image_phase(torch, np, dev, card: str) -> dict:
         if list(host_img.shape) != e["shape"] or sha(host_img) != e["rgb_sha256"]:
             fail(f"{n}: the decode on the card differs from cv2's recorded digest")
         small = cuda_image.resize(img, (300, 300))
-        if sha(small.cpu().numpy()) != e["resize300_sha256"]:
-            fail(f"{n}: the 300x300 linear resize on the card differs from cv2's recorded digest")
+        if sha(small.cpu().numpy()) != e["resize300_sha256"] or not torch.equal(small, batched[names.index(n)]):
+            fail(f"{n}: the 300x300 linear resize on the card (alone, or in resize_batch) differs from cv2's "
+                 f"recorded digest")
         resize_err = max(resize_err, float((small.cpu().int() - cuda_image.resize(img.cpu(), (300, 300)).int()).abs().max()))
         if "area_sha256" in e:
             fit = cuda_image.resize(img, e["area_shape"][:2], "area")
@@ -2205,10 +2299,11 @@ def image_phase(torch, np, dev, card: str) -> dict:
             raw_err = max(raw_err, int((got.int() - want.int()).abs().max()))
         if n.endswith(".tif"):
             tif = codec.parse_tiff(blobs[n])
-            got = cuda_image.decode_lzw_batch([], [tif], dev)[0].cpu()
-            want = cuda_image.decode_lzw_batch([], [tif], cpu)[0]
+            got = decode_tiff(codec, cuda_image, tif, dev).cpu()
+            want = decode_tiff(codec, cuda_image, tif, cpu)
             if not torch.equal(got, want):
-                fail(f"{n}: the TIFF kernels (K9, K10, K8) differ from their plain versions")
+                fail(f"{n}: the TIFF kernels (K1 + K2 + K3 for JPEG chunks, K9, K10, K8) differ from their plain "
+                     f"versions")
             raw_err = max(raw_err, int((got.int() - want.int()).abs().max()))
         if not n.endswith((".png", ".jpg", ".gif", ".tif")):
             raw = codec.parse_raw(blobs[n], codec.image_kind(blobs[n]))
@@ -2315,7 +2410,9 @@ def image_phase(torch, np, dev, card: str) -> dict:
           f"{int((fixture_rounds > 0).sum())} segments; subsequences its repair decoded one after another: "
           f"max {int(fixture_walked.max())} a segment, {int(fixture_walked.sum())} in all), K4 (uint8 linear, "
           f"float32 linear, area), K5, K9, K10 and K8 equal to theirs ({len(tiffs)} TIFFs and BigTIFFs among the "
-          f"fixtures); {len(REFUSED)} fixtures refused "
+          f"fixtures, {len(jpeg_tiffs)} JPEG-in-TIFFs whose chunks went through K1 and the fused K2 + K3 in the "
+          f"JPEGs' launches: decode_images of every fixture launched {batch_launches}; their 300x300 resizes in "
+          f"{k4_batch_launches} resize_batch launches equal one resize each); {len(REFUSED)} fixtures refused "
           f"({', '.join(sorted(REFUSED.values()))}); a JPEG cut with no marker after the cut raises ValueError")
 
     # ---- timing at the main path's shapes ---------------------------------------------
@@ -2476,6 +2573,9 @@ def image_phase(torch, np, dev, card: str) -> dict:
                      f"32 x 640x480 progressive {prog_k1_ms:.4f} ms a call; timed outputs equal the plain version's; "
                      f"the earlier one-thread-a-segment design took {OLD_K1_MS} ms a call at 32 images")
             out[name]["progressive_first_ms"] = prog_k1_ms
+        if name == "resize":
+            extra, library = resize_report(torch, np, cuda_image, dev, one, ms, b2b, bound, plain_ms)
+            out[name]["library_ms"] = round(library, 4)
         if name == "png_unfilter_expand":
             ms32 = cuda_ms(torch, lambda: cuda_image.png_decode(png32), warmup=2, iters=10)
             if not equal(cuda_image.png_decode(png32), cuda_image.png_decode(png32_host)):
@@ -2669,13 +2769,16 @@ def scan_kind_report(torch, cuda_image, batch, card: str, label: str) -> dict:
 ROOT_EXTRAS = ("bmp_rle8_37x23.bmp", "pxm_p6_37x23.ppm", "ras_cmap8_37x23.ras", "corrupt_cut_eoi_500x333.jpg",
                "progressive_cut_eoi_83x61.jpg", "gif_cv2_100x80.gif", "hdr_cv2_rle_37x23.hdr",
                "pam_16bit_37x23.pam", "tiff_cv2_640x480.tif", "tiff_planar_37x23.tif",
-               "tiff_bigtiff_lzw_be_37x23.tif", "tiff_pil_cmyk_deflate_37x23.tif")
+               "tiff_bigtiff_lzw_be_37x23.tif", "tiff_pil_cmyk_deflate_37x23.tif", "tiff_jpeg_strips_420_67x45.tif")
+# and one the feed skips, as the JAX feed skips what cv2.imread returns None for
+ROOT_SKIPPED = ("tiff_invalid_lzma_37x23.tif",)
 
 
 def jpeg_coco_root(np, root: str, num_images: int = 64) -> dict:
     """A COCO-format train split of `num_images` fixture images (the seven COCO-sized
-    JPEGs and ROOT_EXTRAS, in turn) under distinct ids and .jpg names, each with 1-4
-    boxes; returns {image id: fixture name}."""
+    JPEGs and ROOT_EXTRAS, in turn), then ROOT_SKIPPED, under distinct ids and .jpg
+    names, each with 1-4 boxes; returns {image id: fixture name} of the first
+    `num_images`."""
     from ssd_object_detection_tpu_torch.data.coco import COCO_NAMES
 
     fixtures, record = fixture_record()
@@ -2684,11 +2787,12 @@ def jpeg_coco_root(np, root: str, num_images: int = 64) -> dict:
     os.makedirs(os.path.join(root, "train2017"))
     rng = np.random.default_rng(4)
     images, annotations, ids = [], [], {}
-    for i in range(num_images):
-        name = names[i % len(names)]
-        h, w = record["images"][name]["shape"][:2]
+    for i in range(num_images + len(ROOT_SKIPPED)):
+        name = names[i % len(names)] if i < num_images else ROOT_SKIPPED[i - num_images]
+        h, w = record["images"][name]["shape"][:2] if name in record["images"] else (23, 37)
         image_id = 5000 + i
-        ids[image_id] = name
+        if i < num_images:
+            ids[image_id] = name
         shutil.copy(os.path.join(fixtures, name), os.path.join(root, "train2017", f"{image_id:012d}.jpg"))
         images.append({"id": image_id, "file_name": f"{image_id:012d}.jpg", "width": w, "height": h})
         for _ in range(int(rng.integers(1, 5))):
@@ -2707,10 +2811,12 @@ def jpeg_coco_root(np, root: str, num_images: int = 64) -> dict:
 def jpeg_train_phase(torch, np, dev, card: str, variant: str = "ssd300") -> tuple:
     """4e. A COCO-format root of 64 fixture images under .jpg names (baseline,
     progressive, CMYK and 4:1:1 JPEGs, a BMP, a PPM, a Sun raster, a corrupt JPEG, a
-    smoothed progressive one, a GIF, an HDR, a PAM and four TIFFs): cli.train packs it on the card
+    smoothed progressive one, a GIF, an HDR, a PAM, four TIFFs and a JPEG-in-TIFF) and an
+    LZMA TIFF (cv2.imread returns None: the feed skips it): cli.train packs it on the card
     (pack_dataset through the decode feed, 8 worker threads, each on its own stream) and
     trains SSD300-VGG16 from the cache at batch 32, bf16, 2 steps; every packed image
-    equals cv2's recorded 300x300 digest. Returns the image kernels' launches and the
+    equals cv2's recorded 300x300 digest. Then the root with a CCITT Group 4 TIFF in place
+    of an image is refused naming it. Returns the image kernels' launches and the
     matcher's."""
     import yaml
 
@@ -2754,37 +2860,40 @@ def jpeg_train_phase(torch, np, dev, card: str, variant: str = "ssd300") -> tupl
         for i in ids:
             data = open(os.path.join(fixtures, ids[i]), "rb").read()
             kind = codec.image_kind(data)
+            chunks = codec.tiff_jpeg_chunks([codec.parse_tiff(data)]) if kind == "tiff" else []
             if kind != "jpeg":
                 want["raw_expand"] += 1
                 want["lzw_decode"] += kind == "gif" or (kind == "tiff" and any(
-                    c.decoded is None for c in codec.parse_tiff(data).chunks))
+                    c.decoded is None and c.jpeg is None for c in codec.parse_tiff(data).chunks))
                 want["tiff_assemble"] += kind == "tiff"
-                continue
+                if not chunks:
+                    continue
             want["jpeg_idct_color"] += 1
-            b = codec.jpeg_batch([codec.parse_jpeg(data)])
+            b = codec.jpeg_batch(chunks or [codec.parse_jpeg(data)])
             want["jpeg_entropy_decode"] += b.steps
             want["progressive_entropy"] += len(b.k6_rounds)
             want["block_smooth"] += int(b.smooth.shape[0] > 0)
         if any(launches[k] != v for k, v in want.items()) or launches["resize"] != 64 or not all(want.values()):
             fail(f"JPEG pack: image kernel launches {launches}, expected {want} and one resize per image")
         kinds = sorted({ids[i] for i in ids})
-        # a JPEG-in-TIFF in the root (cv2 reads it, the port refuses it): the feed raises naming the file
+        # a CCITT Group 4 TIFF in the root (cv2 reads it, the port refuses it): the feed raises naming the file
         from ssd_object_detection_tpu_torch.data import coco, packed as packed_mod
 
         victim = os.path.join(root, "train2017", f"{min(ids):012d}.jpg")
-        shutil.copy(os.path.join(fixtures, "tiff_refused_jpeg_37x23.tif"), victim)
+        shutil.copy(os.path.join(fixtures, "tiff_refused_group4_37x23.tif"), victim)
         try:
             packed_mod.pack_dataset(coco.open_split(root, "train"), os.path.join(root, "packed_refused"),
                                     image_size=size, max_gt=8, num_workers=2, device=dev)
-            fail("JPEG pack: a root holding a JPEG-in-TIFF packed; the feed must refuse it")
+            fail("JPEG pack: a root holding a CCITT Group 4 TIFF packed; the feed must refuse it")
         except codec.UnsupportedImage as e:
-            if victim not in str(e) or "JPEG-in-TIFF" not in str(e):
-                fail(f"JPEG pack: the JPEG-in-TIFF's refusal does not name the file and the format: {e}")
+            if victim not in str(e) or "CCITT Group 4" not in str(e):
+                fail(f"JPEG pack: the CCITT Group 4 TIFF's refusal does not name the file and the codec: {e}")
         print(f"JPEG root [{card}]: 64 fixture images ({len(kinds)} kinds: {', '.join(kinds)}) packed on the card "
               f"by cli.train and trained from, SSD300-VGG16 bf16 batch 32, 2 steps, loss {loss:.4f}, matcher "
               f"launches {matcher}; every packed image equals cv2's 300x300 digest; image kernel launches "
               f"{launches}; "
-              f"{seconds:.1f} s for pack + train; the root with a JPEG-in-TIFF in place of an image refused naming it")
+              f"{seconds:.1f} s for pack + train; {', '.join(ROOT_SKIPPED)} in the root skipped; the root with a "
+              f"CCITT Group 4 TIFF in place of an image refused naming it")
     return launches, matcher
 
 
@@ -2793,9 +2902,10 @@ def http_phase(torch, np, dev, card: str, variant: str = "ssd300", tiers=(1, 8, 
     0, bf16, canvas 640x640, tiers 1, 8, 32): every fixture body POSTed and answered as
     DetectorService.detect_images answers the decoder's pixels, those pixels equal to
     cv2's digests (progressive, CMYK, YCCK, 4:1:1, corrupt and smoothed JPEG bodies, GIF,
-    TIFF, HDR, BMP, PxM, PAM, Sun raster and PFM bodies among them); the refused bodies
-    (AVIF, JPEG-in-TIFF, CCITT Group 4, PAMs with alpha, a 1-channel PFM) 415, those cv2
-    returns None for and bytes that are no image 400; 32
+    TIFF, JPEG-in-TIFF, HDR, BMP, PxM, PAM, Sun raster and PFM bodies among them); the
+    refused bodies (AVIF, CCITT Group 4, uncompressed YCbCr, PAMs with alpha, a 1-channel
+    PFM) 415, those cv2 returns None for (an LZMA TIFF, JPEG-in-TIFFs libtiff cannot start
+    among them) and bytes that are no image 400; 32
     concurrent clients posting the 640x480 JPEG. Returns the image kernels' launches."""
     import urllib.error
     import urllib.request

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Interleaved A/B of one hand-written kernel across trees, on one GPU.
 
-    python3 conv_ab.py DIR_A DIR_B [DIR ...] [--kernel conv|matcher|host_prep|refine] [--rounds 2]
+    python3 conv_ab.py DIR_A DIR_B [DIR ...] [--kernel conv|matcher|host_prep|refine|resize] [--rounds 2]
                        [--shapes NAME ...] [--out FILE]
 
 Each DIR holds an `ssd_object_detection_tpu_torch/` package: a checkout of the repo,
@@ -40,6 +40,17 @@ inside every timed call alike), checked bit-equal to the plain version. Its shap
 batch32, 32 copies of the 640x480 progressive fixture JPEG (of the tree that holds this
 script), the round structure of the timed tree's `jpeg_batch`.
 
+--kernel resize is K4 (csrc/resize.cu), `cuda_image.resize`, checked bit-equal to the
+plain version. Its shapes: one (a 640x480 uint8 RGB image to 300x300, linear: the decode
+feed's call), batch32 (32 such images: one `resize_batch` call where the tree has it,
+else 32 `resize` calls, the caller's loop), f32_one (the same image as float32, the
+host-augmented feed's call), area_one (1280x960 uint8 to 640x480, INTER_AREA at a
+whole-number factor: the serving canvas fit), tiny_one (an 8x8 uint8 image to 4x4: one
+CTA, so its graph time is a launch and the kernel's chain of dependent loads with next
+to no bytes) and launch_floor (no resize: one in-place add on a one-byte tensor, the
+card's cost of a graph node that does nothing, the same in every tree). The images are
+seeded random bytes.
+
 The script prints the card's name and power limit, one line per tree and shape with
 every sample, and writes them all as JSON to FILE. A tree whose process fails (a check,
 a fault) is reported with its error; the others are still timed.
@@ -72,8 +83,15 @@ HOST_PREP_SHAPES = {"batch32": 32, "one": 1}
 HOST_PREP_JPEG = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ssd_object_detection_tpu_torch",
                               "data", "fixtures", "coco_640x480_420.jpg")
 REFINE_JPEG = os.path.join(os.path.dirname(HOST_PREP_JPEG), "coco_640x480_progressive.jpg")
+# shape name -> (images, source (h, w), output (h, w), mode, float32)
+RESIZE_SHAPES = {"one": (1, (480, 640), (300, 300), "linear", False),
+                 "batch32": (32, (480, 640), (300, 300), "linear", False),
+                 "f32_one": (1, (480, 640), (300, 300), "linear", True),
+                 "area_one": (1, (960, 1280), (480, 640), "area", False),
+                 "tiny_one": (1, (8, 8), (4, 4), "linear", False),
+                 "launch_floor": None}
 SHAPE_NAMES = {"conv": [s[0] for s in CONV_SHAPES], "matcher": list(MATCHER_SHAPES),
-               "host_prep": list(HOST_PREP_SHAPES), "refine": ["batch32"]}
+               "host_prep": list(HOST_PREP_SHAPES), "refine": ["batch32"], "resize": list(RESIZE_SHAPES)}
 
 
 def time_call(torch, call) -> dict:
@@ -209,6 +227,37 @@ def child_refine(tree: str, names) -> None:
     print(json.dumps({"shape": names[0], **time_call(torch, call)}), flush=True)
 
 
+def child_resize(tree: str, names) -> None:
+    """Time one tree's K4 at the named shapes; one JSON line per shape."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    from ssd_object_detection_tpu_torch.ops import cuda_image
+
+    rng = np.random.default_rng(0)
+    for name in names:
+        if RESIZE_SHAPES[name] is None:
+            one = torch.zeros(1, dtype=torch.uint8, device="cuda")
+            print(json.dumps({"shape": name, **time_call(torch, lambda: one.add_(1))}), flush=True)
+            continue
+        count, src, dst, mode, f32 = RESIZE_SHAPES[name]
+        host = [torch.from_numpy(rng.integers(0, 256, src + (3,), dtype=np.uint8)) for _ in range(count)]
+        if f32:
+            host = [h.float() / 255 for h in host]
+        images = [h.cuda() for h in host]
+        if hasattr(cuda_image, "resize_batch") and count > 1:
+            def call():
+                return cuda_image.resize_batch(images, [dst] * count, mode)
+        else:
+            def call():
+                return [cuda_image.resize(img, dst, mode) for img in images]
+        for got, want in zip(call(), [cuda_image.resize(h, dst, mode) for h in host]):
+            if not torch.equal(got.cpu(), want):
+                raise SystemExit(f"{tree} {name}: K4 and its plain version differ")
+        print(json.dumps({"shape": name, **time_call(torch, call)}), flush=True)
+
+
 def card_line() -> str:
     """nvidia-smi's name and power limit of the card; "none" without nvidia-smi (a
     host_prep run on a machine without a card)."""
@@ -221,7 +270,8 @@ def card_line() -> str:
         return "none"
 
 
-CHILDREN = {"conv": child_conv, "matcher": child_matcher, "host_prep": child_host_prep, "refine": child_refine}
+CHILDREN = {"conv": child_conv, "matcher": child_matcher, "host_prep": child_host_prep, "refine": child_refine,
+            "resize": child_resize}
 
 
 def main() -> None:

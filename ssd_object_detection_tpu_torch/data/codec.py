@@ -40,22 +40,27 @@ at integral ratios, any restart interval, one or several scans, smoothed or not;
 every colour type and bit depth, interlaced or not; GIF87a and GIF89a (the first frame on
 its logical screen, LZW minimum code sizes 2-11, interlaced or not, transparency);
 TIFF and BigTIFF as cv2 5.0 reads them through libtiff 4.7 (parse_tiff: strips, tiles,
-separate planes, uncompressed, PackBits, Deflate and LZW, the predictor, 1- to 16-bit
-gray, palette, RGB(A) and CMYK samples, the orientation); BMPs (core and info headers,
+separate planes, uncompressed, PackBits, Deflate, LZW and JPEG (each chunk an image of the
+batch's JPEG launches), the predictor, 1- to 16-bit gray, palette, RGB(A) and CMYK
+samples, the orientation; a compression code no codec claims as zero samples); BMPs (core and info headers,
 1/4/8-bit palettes, RLE4/RLE8, 16-bit 555/565, 24 and 32 bits, either row order), P1-P6
 with any maxval, PAM (P7: gray and RGB of 8 or 16 bits,
 and MAXVAL 1 bits, as cv2 5.0 reads them), Sun rasters of 1, 8, 24 and 32 bits (the
 old and the standard type), 3-channel PFMs of either byte order, Radiance HDRs (`-Y H +X
 W`, RLE or flat scanlines). Refused with `UnsupportedImage` (cv2 reads them):
-JPEG-in-TIFF, CCITT, YCbCr and CIELab TIFFs and other TIFF compressions, uncompressed
-tiled TIFFs, WebP, JPEG 2000, AVIF (by any brand of its `ftyp` box), lossless, hierarchical
+TIFFs of the CCITT codecs (1-bit), ThunderScan (4-bit) and SGILog (LogLuv), uncompressed
+YCbCr and CIELab TIFFs, uncompressed tiled TIFFs of 4 samples (and any read from a file,
+which cv2.imread reads: check_file_read), JPEG-in-TIFFs of other samples than 8-bit gray,
+palette, RGB or YCbCr in one plane, WebP, JPEG 2000, AVIF (by any brand of its `ftyp` box), lossless, hierarchical
 and arithmetic-coded JPEGs, 12-bit ones, a 1-channel PFM (cv2 returns it with one
 channel, which the JAX package's decode paths do not take) and a PAM with alpha past
 MAXVAL 1 (cv2 fills most of it from memory it never wrote). Bytes cv2 returns None for
 raise ValueError: a JPEG whose entropy-coded data has no marker after it (cut), a
 2-component JPEG, a byte-encoded or RGB-type Sun raster, a BMP, PxM or PAM whose pixels
 end early, a PAM whose TUPLTYPE and DEPTH disagree, a GIF whose LZW data does not give
-its frame's pixels exactly, an HDR of another orientation, and the like.
+its frame's pixels exactly, an HDR of another orientation, a TIFF of a codec cv2's
+libtiff lacks (LZMA, ZSTD, WebP, JBIG, LERC, PixarLog, NeXT, old-style JPEG) or whose
+setup refuses its samples, a JPEG-in-TIFF chunk libtiff cannot start, and the like.
 """
 
 from __future__ import annotations
@@ -200,6 +205,7 @@ class JpegImage:
     # (components, 2 * SMOOTHING_COEFS): coef_bits (-1 unsent, else the last Al) after the
     # last scan and before each component's last scan, as libjpeg latches them
     coef_bits: Optional[np.ndarray] = None
+    sampling: Optional[List[Tuple[int, int]]] = None  # the frame's (h, v) factors as written
 
     @property
     def hmax(self) -> int:
@@ -376,6 +382,7 @@ def parse_jpeg(data: bytes) -> JpegImage:
                 if tq > 3:
                     raise ValueError("corrupt JPEG: bad quantisation table slot")
                 comps.append((cid, h, v, tq))
+            sampling = [(c[1], c[2]) for c in comps]
             if nc == 1:
                 comps = [(comps[0][0], 1, 1, comps[0][3])]  # libjpeg ignores a lone component's factors
             hmax, vmax = max(c[1] for c in comps), max(c[2] for c in comps)
@@ -501,7 +508,7 @@ def parse_jpeg(data: bytes) -> JpegImage:
         prev_bits[:] = -1
     return JpegImage(height, width, comps, qtables, huffman, scans, space, orientation, progressive, smooth,
                      np.concatenate([coef_bits[:, :SMOOTHING_COEFS], prev_bits[:, :SMOOTHING_COEFS]], 1)
-                     if smooth else None)
+                     if smooth else None, sampling)
 
 
 def _steps(scans: List[_Scan]) -> None:
@@ -1757,11 +1764,44 @@ def gif_batch(images: Sequence[GifImage], tiff: Optional["TiffBatch"] = None) ->
 # into RGB by libtiff's put routine.
 TIFF_MAGICS = {b"II*\0": ("<", False), b"MM\0*": (">", False), b"II+\0": ("<", True), b"MM\0+": (">", True)}
 _TIFF_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 17: "q"}  # the integer types
-TIFF_NONE, TIFF_LZW, TIFF_DEFLATE, TIFF_ADOBE_DEFLATE, TIFF_PACKBITS = 1, 5, 8, 32946, 32773
-_TIFF_COMPRESSIONS = (TIFF_NONE, TIFF_LZW, TIFF_DEFLATE, TIFF_ADOBE_DEFLATE, TIFF_PACKBITS)
-_TIFF_REFUSED = {2: "CCITT modified Huffman", 3: "CCITT Group 3", 4: "CCITT Group 4", 6: "old-style JPEG-in-TIFF",
-                 7: "JPEG-in-TIFF", 32809: "ThunderScan", 32908: "PixarLog", 32909: "PixarLog", 34676: "SGILog",
-                 34677: "SGILog24", 34925: "LZMA", 50000: "ZSTD", 50001: "WebP-in-TIFF"}
+TIFF_NONE, TIFF_LZW, TIFF_DEFLATE, TIFF_ADOBE_DEFLATE, TIFF_PACKBITS, TIFF_JPEG = 1, 5, 8, 32946, 32773, 7
+_TIFF_COMPRESSIONS = (TIFF_NONE, TIFF_LZW, TIFF_DEFLATE, TIFF_ADOBE_DEFLATE, TIFF_PACKBITS, TIFF_JPEG)
+# What cv2 5.0 makes of every other compression code (the committed probe of each code
+# 0-65535 on several kinds of image: data/tiff_compressions.json, written by
+# tools/make_image_fixtures.py). A codec that cv2's libtiff lacks (not configured) fails
+# TIFFRGBAImageOK, and one whose setup refuses the samples fails the first read of a chunk:
+# cv2 returns None. A code no codec claims passes both, decodes no chunk, and libtiff's put
+# routine reads the zero samples it allocated.
+_TIFF_NONE_CODECS = {6: "old-style JPEG", 32766: "NeXT", 32909: "PixarLog", 34661: "JBIG", 34887: "LERC",
+                     34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
+# codecs cv2 decodes and this decoder lacks: name, and the samples each decodes (None elsewhere)
+_TIFF_LACKED = {2: "CCITT modified Huffman", 3: "CCITT Group 3", 4: "CCITT Group 4", 32771: "CCITT RLEW",
+                32809: "ThunderScan", 34676: "SGILog", 34677: "SGILog24"}
+_TIFF_UNCLAIMED = {0: "compression 0", 9: "JBIG T.85", 10: "JBIG T.43", 32895: "IT8CTPAD", 32896: "IT8LW",
+                   32897: "IT8MP", 32898: "IT8BL", 32908: "PixarFilm", 34712: "JPEG 2000", 50002: "JPEG XL"}
+TIFF_LOGL, TIFF_LOGLUV = 32844, 32845
+
+
+def tiff_compression_outcome(compression: int, bits: int, photometric: int) -> Tuple[str, str]:
+    """What cv2 5.0 makes of a TIFF's compression code, for samples it otherwise reads:
+    ("decode", name) for this decoder's codecs, ("none", name) where cv2 returns None,
+    ("lacks", name) where cv2's libtiff decodes what this decoder cannot (the CCITT codecs on
+    1-bit samples, ThunderScan on 4-bit ones, SGILog on LogL / LogLuv), ("zero", name) for
+    a code no codec claims (every chunk reads as zero samples). A LogL or LogLuv image is
+    "none" but for SGILog."""
+    if photometric in (TIFF_LOGL, TIFF_LOGLUV) and compression not in (34676, 34677):
+        return "none", "LogL or LogLuv without SGILog"  # libtiff reads them through SGILog only
+    if compression in _TIFF_COMPRESSIONS:
+        return "decode", {TIFF_NONE: "no compression", TIFF_LZW: "LZW", TIFF_DEFLATE: "Deflate",
+                          TIFF_ADOBE_DEFLATE: "Deflate", TIFF_PACKBITS: "PackBits", TIFF_JPEG: "JPEG"}[compression]
+    if compression in _TIFF_NONE_CODECS:
+        return "none", _TIFF_NONE_CODECS[compression]
+    if compression in _TIFF_LACKED:
+        name = _TIFF_LACKED[compression]
+        takes = (bits == 1 if compression in (2, 3, 4, 32771) else bits == 4 if compression == 32809 else
+                 photometric == TIFF_LOGLUV or (photometric == TIFF_LOGL and compression == 34676))
+        return ("lacks" if takes else "none"), name
+    return "zero", _TIFF_UNCLAIMED.get(compression, f"compression {compression}")
 # K8's view of a TIFF's samples (codec.RawImage.fmt): through a 256-entry table (gray
 # contig, palette: libtiff's BWmap and PALmap), as RGB (RGB, and gray planes, which
 # tif_getimage.c treats as RGB), or as CMYK
@@ -1774,8 +1814,12 @@ TIFF_LUT_FORMAT, TIFF_RGB_FORMAT, TIFF_CMYK_FORMAT = 15, 16, 17
 # predictor and the swap, as libtiff does after a decoding error), pixels a decoded row,
 # bytes from one placed row's first byte to the next's in the decoded rows (a decoded
 # row's bytes, but where libtiff's put routine skews a tile cut at the image's right
-# edge: see _tile_pitch)].
-TIFF_CHUNK_INTS = 12
+# edge: see _tile_pitch), 0 or, for a JPEG chunk, the bytes of the JPEG kernels' RGB
+# output a placed byte steps over (1, or 3 for one sample a pixel)]. A JPEG chunk's rows
+# are read from that RGB output: its first field is the byte of its frame there, its
+# rows and bytes placed are cut to what the frame holds, and its pitch is the frame's
+# RGB row.
+TIFF_CHUNK_INTS = 13
 # K9's flavours (GIF_INTS row, field 16)
 LZW_GIF, LZW_TIFF = 0, 1
 TIFF_LZW_CLEAR, TIFF_LZW_EOI = 256, 257
@@ -1798,6 +1842,7 @@ class TiffChunk:
     pitch: int  # bytes from one placed row to the next in the decoded rows
     decoded: Optional[bytes] = None
     ok: bool = True  # the host's decode filled the chunk (else no predictor and no swap)
+    jpeg: Optional[JpegImage] = None  # a JPEG-in-TIFF chunk's abbreviated stream, tables loaded
 
 
 @dataclasses.dataclass
@@ -1915,8 +1960,10 @@ def _tiff_layout(tags: dict, get, one, data: bytes, height: int, width: int, spp
         if tw * samples * bits % 8:
             raise UnsupportedImage(f"TIFF tiles {tw} pixels wide at {samples * bits} bits a pixel "
                                    f"(not a whole number of bytes; {_READ})")
-        if compression == TIFF_NONE:  # cv2 returns None for most, not all: the rule is not pinned here
-            raise UnsupportedImage(f"uncompressed tiled TIFF ({_READ})")
+        if compression == TIFF_NONE:  # cv2 returns None but for 4 samples a pixel (probed; those not pinned)
+            if spp != 4:
+                raise ValueError(f"uncompressed tiled TIFF of {spp} samples a pixel (cv2 returns None)")
+            raise UnsupportedImage(f"uncompressed tiled TIFF of 4 samples a pixel ({_READ})")
         boxes = [(y, x, th, tw) for y in range(0, height, th) for x in range(0, width, tw)]
         off_tag, count_tag = 324, 325
     else:
@@ -1943,7 +1990,7 @@ def _tiff_layout(tags: dict, get, one, data: bytes, height: int, width: int, spp
     elif (one(284, 1) == 1 and not tiled and total > 2 and compression == TIFF_NONE and counts[0] != counts[1]
           and counts[0] and counts[1]):  # and, uncompressed, strips whose first two counts differ
         counts = [stride * (height // total)] * total
-    reverse = one(266, 1) == 2
+    reverse = one(266, 1) == 2 and compression != TIFF_JPEG  # libtiff's JPEG codec sets TIFF_NOBITREV
     chunks = []
     for plane in read_planes:
         for i, (y0, x0, rows, cols) in enumerate(boxes):
@@ -1983,15 +2030,58 @@ def _tiff_directory(data: bytes) -> Tuple[str, bool, dict]:
     return order, big, tags
 
 
+def _tiff_bytes(data: bytes, order: str, big: bool, entry: Tuple[int, int, int]) -> bytes:
+    """The bytes of a BYTE or UNDEFINED field (JPEGTables)."""
+    typ, count, field = entry
+    if typ not in (1, 7):
+        raise ValueError(f"corrupt TIFF: a byte field of type {typ}")
+    at = field if count <= (8 if big else 4) else struct.unpack_from(order + ("Q" if big else "I"), data, field)[0]
+    if at + count > len(data):
+        raise ValueError("corrupt TIFF: a field's values run past the data")
+    return data[at:at + count]
+
+
+def _tiff_jpeg_chunk(raw: bytes, tables: bytes, rows: int, cols: int, spp: int,
+                     ycbcr: Optional[Tuple[int, int]], last_strip: bool) -> JpegImage:
+    """A JPEG-in-TIFF chunk as libtiff 4.7's JPEG codec reads it (tif_jpeg.c): tag 347's
+    tables first, then the chunk's own stream, which its source manager ends with a fake
+    EOI where the data runs out. The components come out as they are (JCS_UNKNOWN), or, for
+    YCbCr, converted to RGB by libjpeg with its own upsampling, within the chunk. ValueError
+    where JPEGPreDecode fails, which fails the chunk's first read (cv2 returns None): a
+    stream libjpeg cannot start, a component count other than the samples a pixel, sampling
+    factors other than YCbCrSubsampling's on the first component (1 x 1 where not YCbCr)
+    and 1 x 1 on the rest, a frame wider or taller than the chunk (but for a last strip as
+    wide as the image, which libtiff cuts to its rows)."""
+    if raw[:2] != b"\xff\xd8":
+        raise ValueError("corrupt TIFF: a JPEG chunk that does not start with SOI (cv2 returns None)")
+    head = tables[:-2] if tables[-2:] == b"\xff\xd9" else tables
+    if tables and head[:2] != b"\xff\xd8":
+        raise ValueError("corrupt TIFF: JPEGTables that do not start with SOI (cv2 returns None)")
+    im = parse_jpeg((head + raw[2:] if tables else raw) + b"\xff\xd9")
+    if len(im.comps) != spp:
+        raise ValueError(f"corrupt TIFF: a JPEG chunk of {len(im.comps)} components for {spp} samples a pixel")
+    if im.sampling != [ycbcr or (1, 1)] + [(1, 1)] * (spp - 1):
+        raise ValueError(f"corrupt TIFF: JPEG sampling factors {im.sampling} (libtiff wants "
+                         f"{ycbcr or (1, 1)} then 1 x 1)")
+    if im.width > cols or (im.height > rows and not (last_strip and im.width == cols)):
+        raise ValueError(f"corrupt TIFF: a {im.width} x {im.height} JPEG in a {cols} x {rows} chunk")
+    im.space = SPACE_YCC if ycbcr else SPACE_GRAY if spp == 1 else SPACE_RGB
+    im.orientation = 1  # the TIFF's own orientation applies, after the chunks are placed
+    return im
+
+
 def parse_tiff(data: bytes) -> TiffImage:
     """A TIFF's or BigTIFF's first directory as cv2 5.0 reads it with IMREAD_COLOR through
     libtiff's RGBA interface: strips or tiles, one plane or separate ones; uncompressed,
-    PackBits, Deflate (decoded here) or LZW (K9); 1-, 4-, 8- or 16-bit samples; gray
-    (MinIsBlack, MinIsWhite), RGB, palette and CMYK, with or without extra samples (an
-    unassociated alpha premultiplies, as libtiff does); the horizontal predictor; the
-    Orientation tag as cv2 applies it. ValueError where cv2 returns None;
-    UnsupportedImage for what cv2 reads and this decoder does not (JPEG-in-TIFF, CCITT,
-    YCbCr, CIELab, LogLuv, other compressions, old-style LZW)."""
+    PackBits, Deflate (decoded here), LZW (K9) or JPEG (8-bit gray, palette, RGB or YCbCr
+    of contiguous samples: each chunk a JPEG of the batch, through K1 and the fused K2 +
+    K3); a compression code no codec claims as zero samples; 1-, 4-, 8- or 16-bit
+    samples; gray (MinIsBlack, MinIsWhite), RGB, palette and CMYK, with or without extra
+    samples (an unassociated alpha premultiplies, as libtiff does); the horizontal
+    predictor; the Orientation tag as cv2 applies it. ValueError where cv2 returns None
+    (tiff_compression_outcome's "none" codecs among them); UnsupportedImage for what cv2
+    reads and this decoder does not (its "lacks" codecs, uncompressed YCbCr, CIELab,
+    uncompressed tiles of 4 samples, JPEG-in-TIFF of other samples, old-style LZW)."""
     order, big, tags = _tiff_directory(data)
 
     def get(tag, default=None):
@@ -2018,15 +2108,31 @@ def parse_tiff(data: bytes) -> TiffImage:
     if any(f not in (1, 2) for f in formats[:spp]):
         raise ValueError(f"TIFF of sample format {formats[0]} (cv2 reads unsigned and signed integers: it "
                          f"returns None for floating-point samples)")
+    compression = one(259, TIFF_NONE)
+    jpeg = compression == TIFF_JPEG
+    if jpeg and bits == 12:
+        raise UnsupportedImage(f"12-bit JPEG-in-TIFF ({_READ})")
+    if jpeg and bits != 8:  # libtiff's JPEG codec fails its first read: the data precision is 8 or 12
+        raise ValueError(f"JPEG-in-TIFF of {bits}-bit samples (cv2 returns None)")
     if bits not in (1, 4, 8, 16) or (bits == 4 and photometric != 3):
         raise ValueError(f"TIFF of {bits}-bit samples (cv2 reads 1, 8 and 16 bits, 4 in a palette image)")
-    compression = one(259, TIFF_NONE)
-    if compression not in _TIFF_COMPRESSIONS:
-        raise UnsupportedImage(f"TIFF with {_TIFF_REFUSED.get(compression) or f'compression {compression}'} "
-                               f"({_READ})")
-    if photometric in (6, 8) or (photometric in (32844, 32845)):
-        name = {6: "YCbCr", 8: "CIELab"}.get(photometric, "LogLuv")
-        raise UnsupportedImage(f"TIFF of photometric {name} ({_READ})")
+    outcome, codec_name = tiff_compression_outcome(compression, bits, photometric)
+    if outcome == "none":
+        raise ValueError(f"TIFF with {codec_name} compression of these samples (cv2 returns None)")
+    if outcome == "lacks":
+        raise UnsupportedImage(f"TIFF with {codec_name} compression ({_READ})")
+    if photometric == 8 or (photometric == 6 and not jpeg):
+        raise UnsupportedImage(f"TIFF of photometric {'CIELab' if photometric == 8 else 'YCbCr'} ({_READ})")
+    ycbcr = None
+    if jpeg:
+        contig = one(284, 1) == 1 or spp == 1
+        if not (contig and bits == 8 and 338 not in tags and
+                ((spp == 1 and photometric in (0, 1, 3)) or (spp == 3 and photometric in (2, 6)))):
+            raise UnsupportedImage(f"JPEG-in-TIFF of {spp} {bits}-bit samples a pixel, photometric {photometric}"
+                                   f"{'' if contig else ', separate planes'} ({_READ})")
+        if photometric == 6:  # the RGBA interface has libjpeg convert to RGB (JPEGCOLORMODE_RGB)
+            sub = get(530, [2, 2])
+            ycbcr, photometric = (sub[0], sub[1] if len(sub) > 1 else 2), 2
     planar = one(284, 1)
     if planar not in (1, 2):
         raise ValueError(f"TIFF with PlanarConfiguration {planar}")
@@ -2103,6 +2209,8 @@ def parse_tiff(data: bytes) -> TiffImage:
         mirror, orientation = one(322, 0), {2: 1, 3: 4, 6: 7, 7: 6}[orientation]
     chunks, stride = _tiff_layout(tags, get, one, data, height, width, spp, bits, planar, compression, read_planes,
                                   fmt)
+    tiled = 322 in tags or 323 in tags
+    tables = _tiff_bytes(data, order, big, tags[347]) if jpeg and 347 in tags else b""
     for c in chunks:
         size = c.rows * c.row_bytes
         if compression == TIFF_NONE:
@@ -2115,8 +2223,13 @@ def parse_tiff(data: bytes) -> TiffImage:
                 raise UnsupportedImage(f"TIFF of old-style (LSB-first) LZW codes ({_READ})")
             if len(c.raw) < 2 or (c.raw[0] << 1 | c.raw[1] >> 7) != TIFF_LZW_CLEAR:
                 c.decoded, c.ok = bytes(size), False  # libtiff decodes nothing before a Clear
-        else:
+        elif compression in (TIFF_DEFLATE, TIFF_ADOBE_DEFLATE):
             c.decoded, c.ok = inflate(c.raw, size)
+        elif jpeg:
+            c.jpeg = _tiff_jpeg_chunk(c.raw, tables, c.rows, c.width, spp, ycbcr,
+                                      last_strip=not tiled and c.y0 + c.rows >= height)
+        else:  # no codec claims the code: libtiff decodes nothing
+            c.decoded, c.ok = bytes(size), False
     return TiffImage(height, width, orientation, bits, spp if planar == 1 else 1, max(read_planes) + 1, stride,
                      predictor, bits == 16 and order == ">", fmt, channels, alpha_sample, palette, chunks, mirror)
 
@@ -2124,7 +2237,8 @@ def parse_tiff(data: bytes) -> TiffImage:
 @dataclasses.dataclass
 class TiffBatch:
     """A batch of TIFFs as K9's TIFF streams and K10 read them (CPU tensors until `to`):
-    `decoded`, every chunk's decoded rows (the host's; zero where K9 writes an LZW chunk),
+    `decoded`, every chunk's decoded rows but the JPEG ones' (the host's; zero where K9
+    writes an LZW chunk),
     `chunks` (C, TIFF_CHUNK_INTS), each image's offset in the image buffer, and the LZW
     streams: (stored bytes, offset in `decoded`, bytes to fill) each."""
 
@@ -2133,6 +2247,9 @@ class TiffBatch:
     image_offsets: List[int]
     image_bytes: int
     lzw: List[Tuple[bytes, int, int]]
+    # the bytes of the JPEG chunks' RGB frames (tiff_jpeg_chunks' order, back to back),
+    # which K10 reads from the JPEG kernels' output
+    jpeg_bytes: int = 0
 
     def to(self, device: torch.device) -> "TiffBatch":
         return dataclasses.replace(self, decoded=self.decoded.to(device, non_blocking=True),
@@ -2141,10 +2258,18 @@ class TiffBatch:
 
 def tiff_batch(images: Sequence[TiffImage]) -> TiffBatch:
     pieces, rows, lzw, offsets = [], [], [], []
-    at = image_at = 0
+    at = image_at = jpeg_at = 0
     for im in images:
         offsets.append(image_at)
         for c in im.chunks:
+            dst = image_at + (c.plane * im.height + c.y0) * im.stride + c.byte0
+            if c.jpeg is not None:
+                frame_h, frame_w = c.jpeg.height, c.jpeg.width
+                rows.append([jpeg_at, min(c.placed_rows, frame_h), frame_w * 3, dst, im.stride,
+                             min(c.placed_bytes, frame_w * im.samples), 0, im.samples, 0, -1, frame_w, frame_w * 3,
+                             3 // im.samples])
+                jpeg_at += frame_h * frame_w * 3
+                continue
             size = c.rows * c.row_bytes
             stream = -1
             if c.decoded is None:
@@ -2152,17 +2277,21 @@ def tiff_batch(images: Sequence[TiffImage]) -> TiffBatch:
                 lzw.append((c.raw, at, size))
             pieces.append(c.decoded if c.decoded is not None else bytes(size))
             ok = c.ok
-            rows.append([at, c.placed_rows, c.row_bytes, image_at + (c.plane * im.height + c.y0) * im.stride + c.byte0,
-                         im.stride, c.placed_bytes, im.predictor if ok else 0, im.samples, int(im.swab and ok), stream,
-                         c.width, c.pitch])
+            rows.append([at, c.placed_rows, c.row_bytes, dst, im.stride, c.placed_bytes, im.predictor if ok else 0,
+                         im.samples, int(im.swab and ok), stream, c.width, c.pitch, 0])
             at += size
         image_at += im.nbytes
-    if at >= 2 ** 31 or image_at >= 2 ** 31:
+    if max(at, image_at, jpeg_at) >= 2 ** 31:
         raise ValueError("TIFF batch too large for one launch")
     decoded = np.frombuffer(b"".join(pieces) or b"\0", np.uint8).copy()
     return TiffBatch(torch.from_numpy(decoded), torch.from_numpy(np.asarray(rows, np.int64).astype(np.int32)
                                                                  .reshape(-1, TIFF_CHUNK_INTS)),
-                     offsets, image_at, lzw)
+                     offsets, image_at, lzw, jpeg_at)
+
+
+def tiff_jpeg_chunks(images: Sequence[TiffImage]) -> List[JpegImage]:
+    """The JPEG chunks of a batch of TIFFs, in tiff_batch's order."""
+    return [c.jpeg for im in images for c in im.chunks if c.jpeg is not None]
 
 
 # ---------------------------------------------------------------------------- formats
@@ -2254,18 +2383,22 @@ def decode_images_with_warnings(blobs: Sequence[bytes], device: str | torch.devi
     tiffs = [(i, parse_tiff(b)) for i, (b, k) in enumerate(zip(blobs, kinds)) if k == "tiff"]
     raws = [(i, parse_raw(b, k)) for i, (b, k) in enumerate(zip(blobs, kinds)) if k in RAW_KINDS]
     status = None
-    if jpegs:
-        batch = jpeg_batch([im for _, im in jpegs])
+    tiff_jpegs = tiff_jpeg_chunks([t for _, t in tiffs])
+    chunk_pixels: Optional[torch.Tensor] = None
+    if jpegs or tiff_jpegs:  # the JPEGs and the TIFFs' JPEG chunks, in one batch
+        batch = jpeg_batch([im for _, im in jpegs] + tiff_jpegs)
         if device.type == "cuda":
             batch = batch.to(device)
-        decoded, status = cuda_image.decode_jpeg_batch(batch)
-        for (i, _), img in zip(jpegs, decoded):
+        coef, status = cuda_image.decode_entropy(batch)
+        rgb = cuda_image.idct_color(coef, batch)
+        for (i, _), img in zip(jpegs, cuda_image.rgb_views(rgb, batch.out_shapes)):
             out[i] = img
+        chunk_pixels = rgb[sum(h * w * 3 for h, w in batch.out_shapes[:len(jpegs)]):]
     if pngs:
         for (i, _), img in zip(pngs, cuda_image.decode_png_batch([p for _, p in pngs], device)):
             out[i] = img
     if gifs or tiffs:
-        decoded = cuda_image.decode_lzw_batch([g for _, g in gifs], [t for _, t in tiffs], device)
+        decoded = cuda_image.decode_lzw_batch([g for _, g in gifs], [t for _, t in tiffs], device, chunk_pixels)
         for (i, _), img in zip(gifs + tiffs, decoded):
             out[i] = img
     for i, raw in raws:
@@ -2279,22 +2412,28 @@ def decode_image(data: bytes, device: str | torch.device = "cuda") -> torch.Tens
 
 
 def check_file_read(data: bytes) -> None:
-    """ValueError where cv2.imread of a file returns None though cv2.imdecode of its bytes
-    decodes them: a TIFF whose orientation (tag 274) is 5-8 and whose width is not its
-    height, whatever else it holds. cv2 5.0's imread decodes into the image it allocated
-    from the header and checks that the decoder kept it (`original_ptr == real_mat.data`);
-    the TIFF decoder turns the image itself, and so allocates it anew."""
+    """Where cv2.imread of a file differs from cv2.imdecode of its bytes. ValueError where
+    imread returns None though imdecode decodes: a TIFF whose orientation (tag 274) is 5-8
+    and whose width is not its height, whatever else it holds (cv2 5.0's imread decodes
+    into the image it allocated from the header and checks that the decoder kept it,
+    `original_ptr == real_mat.data`; the TIFF decoder turns the image itself, and so
+    allocates it anew). UnsupportedImage where imread reads what imdecode returns None for:
+    an uncompressed tiled TIFF (data/tiff_compressions.json, "imread_differs"),
+    which this decoder does not read."""
     if data[:4] not in TIFF_MAGICS:
         return
     try:
         order, big, tags = _tiff_directory(data)
-        value = {t: _tiff_values(data, order, big, tags[t]) for t in (256, 257, 274) if t in tags}
-        width, height, orientation = (value.get(t, [d])[0] for t, d in ((256, 0), (257, 0), (274, 1)))
+        value = {t: _tiff_values(data, order, big, tags[t]) for t in (256, 257, 259, 274) if t in tags}
+        width, height, compression, orientation = (value.get(t, [d])[0] for t, d in
+                                                   ((256, 0), (257, 0), (259, TIFF_NONE), (274, 1)))
     except (ValueError, struct.error, IndexError):
         return  # the decode tells what cv2 makes of it
     if 5 <= orientation <= 8 and width != height:
         raise ValueError(f"a {width} x {height} TIFF of orientation {orientation}: cv2.imread returns None "
                          f"for it")
+    if compression == TIFF_NONE and (322 in tags or 323 in tags):
+        raise UnsupportedImage(f"uncompressed tiled TIFF read from a file (cv2.imread reads it; {_READ})")
 
 
 def imread(path: str, device: str | torch.device = "cuda") -> torch.Tensor:

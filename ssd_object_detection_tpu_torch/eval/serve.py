@@ -315,17 +315,6 @@ class DetectorService:
         for t in self._tiers:
             self.detect_images([np.zeros((8, 8, 3), np.uint8)] * t)
 
-    def _fit_canvas(self, img: np.ndarray) -> np.ndarray:
-        """Aspect-preserving downscale (on the device) of an image larger than the canvas."""
-        hc, wc = self._canvas_hw
-        h, w = img.shape[:2]
-        if h <= hc and w <= wc:
-            return img
-        scale = min(hc / h, wc / w)
-        src = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
-        fit = cuda_image.resize(src, (max(1, int(h * scale)), max(1, int(w * scale))), "area")
-        return fit.cpu().numpy()
-
     def detect_images(self, images: Sequence[np.ndarray]) -> List[List[dict]]:
         """list of HWC uint8 RGB arrays (len <= batch_size) -> per-image lists of
         {"box_xyxy": [x1, y1, x2, y2] float pixels, "score": float, "class_id": int
@@ -336,7 +325,7 @@ class DetectorService:
             raise ValueError(f"{len(images)} images exceed the compiled batch size "
                              f"{self._batch_size}; split the request")
         orig_hw = [img.shape[:2] for img in images]
-        fitted = [self._fit_canvas(img) for img in images]
+        fitted = fit_to_canvas(images, self._canvas_hw, self.device)
         fitted += [np.zeros((8, 8, 3), np.uint8)] * (self._pick_tier(len(fitted)) - len(fitted))
         canvas, sizes = pack_canvas(fitted, self._canvas_hw)
         det = self._predict(torch.from_numpy(canvas), torch.from_numpy(sizes))
@@ -365,6 +354,36 @@ class DetectorService:
     def detect_encoded(self, data: bytes) -> List[dict]:
         """One encoded image (a request body) -> detection list (see detect_images)."""
         return self.detect_images([decode_image_bytes(data, self.device)])[0]
+
+
+def fit_to_canvas(images: Sequence[np.ndarray], canvas_hw: Tuple[int, int], device: torch.device
+                  ) -> List[np.ndarray]:
+    """Each HWC uint8 image larger than the canvas downscaled on `device` keeping its aspect
+    (cv2's INTER_AREA), the rest as they are: the large ones in one upload, one K4 launch
+    (cuda_image.resize_batch) and one fetch."""
+    hc, wc = canvas_hw
+    big = [i for i, img in enumerate(images) if img.shape[0] > hc or img.shape[1] > wc]
+    if not big:
+        return list(images)
+    sizes = []
+    for i in big:
+        h, w = images[i].shape[:2]
+        scale = min(hc / h, wc / w)
+        sizes.append((max(1, int(h * scale)), max(1, int(w * scale))))
+    src = torch.from_numpy(np.concatenate([np.ascontiguousarray(images[i]).reshape(-1) for i in big])).to(device)
+    views, at = [], 0
+    for i in big:
+        views.append(src[at:at + images[i].size].view(images[i].shape))
+        at += images[i].size
+    channels = images[big[0]].shape[2]
+    out = torch.empty((sum(h * w for h, w in sizes) * channels,), dtype=torch.uint8, device=device)
+    cuda_image.resize_batch(views, sizes, "area", out=out)
+    host = out.cpu().numpy()
+    fitted, at = list(images), 0
+    for i, (h, w) in zip(big, sizes):
+        fitted[i] = host[at:at + h * w * channels].reshape(h, w, channels)
+        at += h * w * channels
+    return fitted
 
 
 def decode_image_bytes(data: bytes, device: str | torch.device = "cuda") -> np.ndarray:

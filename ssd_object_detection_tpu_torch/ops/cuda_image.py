@@ -38,7 +38,9 @@ What bounds them on an H100 (ops/cuda_image.py::bound_bytes gives the byte count
   K7 and K8 are one thread per 8x8 block or per output pixel, integer but for K8's float
      PFM and RGBE samples; the bytes they move bound them. K10 is a CTA a TIFF chunk, a
      warp a row: the predictor's prefix sum by shuffles, then the rows copied into place.
-  K4 is one thread per output sample, reading two (linear) or a cell (area) of inputs.
+  K4 is one launch a batch of images, a CTA a tile of 128 x 8 output pixels of one
+     image (its x table in shared memory), a warp an output row, a lane every 32nd pixel
+     of it, the per-image arguments by value and each shape pair's plan cached on the card.
   K5 is a row wavefront: a CTA a pass of a batch's pass table, a warp 32 rows, a lane a
      row, a pixel a step (W + H - 1 dependent steps a pass; a warp's first row waits on
      the warp above's last, pixel by pixel, in shared memory), on a scratch the first
@@ -58,7 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -95,9 +97,7 @@ _SIGNATURES = {
         "ssd_raw_expand": ([_P, _L, _P, _I, _I, _P, ctypes.c_float, _P, _P], _I),
     },
     RESIZE_SOURCE: {
-        "ssd_resize_linear_u8": ([_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P], _I),
-        "ssd_resize_linear_f32": ([_P, _I, _I, _I, _P, _I, _I, _P, _P, _P, _P, _I, _P], _I),
-        "ssd_resize_area_u8": ([_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _I, _P], _I),
+        "ssd_resize_batch": ([_I, _I, _P, _I, _I, _P], _I),
     },
     PNG_SOURCE: {
         "ssd_png_decode": ([_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P], _I),
@@ -106,7 +106,7 @@ _SIGNATURES = {
         "ssd_gif_lzw": ([_P, _P, _I, _P, _P, _P, _P], _I),
     },
     TIFF_SOURCE: {
-        "ssd_tiff_assemble": ([_P, _P, _I, _P, _P, _P], _I),
+        "ssd_tiff_assemble": ([_P, _P, _P, _I, _P, _P, _P], _I),
     },
 }
 
@@ -304,74 +304,168 @@ def decode_jpeg_batch(batch: JpegBatch) -> Tuple[List[torch.Tensor], torch.Tenso
     """K1, K6 and K7 (each where the batch needs it), then the fused K2 + K3, over a batch:
     per image a uint8 (H, W, 3) RGB view, and the segments' warning counts."""
     coef, status = decode_entropy(batch)
-    rgb = idct_color(coef, batch)
+    return rgb_views(idct_color(coef, batch), batch.out_shapes), status
+
+
+def rgb_views(rgb: torch.Tensor, shapes: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """A flat RGB buffer of images back to back -> an (h, w, 3) view of each."""
     out, at = [], 0
-    for h, w in batch.out_shapes:
+    for h, w in shapes:
         out.append(rgb[at:at + h * w * 3].view(h, w, 3))
         at += h * w * 3
-    return out, status
+    return out
 
 
 # ---------------------------------------------------------------------------- K4
+RESIZE_MODES = {("linear", torch.uint8): 0, ("linear", torch.float32): 1, ("area", torch.uint8): 2}
+RESIZE_TILE = (8, 128)  # csrc/resize.cu: kTileH x kTileW output pixels a CTA
+RESIZE_MAX_ITEMS = 128  # csrc/resize.cu kMaxItems: images a launch
+RESIZE_PLAN_INTS = 16  # csrc/resize.cu enum Plan
+
+
 @functools.lru_cache(maxsize=64)
 def _resize_plan(src_hw: Tuple[int, int], dst_hw: Tuple[int, int], mode: str, dtype: torch.dtype):
-    """(plain version, kernel entry, host tables) of one resize; the tables are built
-    as cv2 builds them, once for each pair of shapes."""
+    """(plain version, host tables) of one resize; the tables are built as cv2 builds
+    them, once for each pair of shapes (None: area at whole-number factors)."""
     if mode == "linear" and dtype == torch.uint8:
-        return (plain_image.resize_linear_u8, "ssd_resize_linear_u8",
-                plain_image.linear_u8_tables(src_hw, dst_hw))
+        return plain_image.resize_linear_u8, plain_image.linear_u8_tables(src_hw, dst_hw)
     if mode == "linear" and dtype == torch.float32:
-        return (plain_image.resize_linear_f32, "ssd_resize_linear_f32",
-                plain_image.linear_f32_tables(src_hw, dst_hw))
+        return plain_image.resize_linear_f32, plain_image.linear_f32_tables(src_hw, dst_hw)
     if mode == "area" and dtype == torch.uint8:
         if dst_hw[0] > src_hw[0] or dst_hw[1] > src_hw[1]:
             raise ValueError(f"area resize is for downscales, got {src_hw} -> {dst_hw}")
         if plain_image.area_is_integer(src_hw, dst_hw):
-            return plain_image.resize_area_u8, "ssd_resize_area_u8", None
-        return (plain_image.resize_area_u8, "ssd_resize_area_u8",
-                (*plain_image.area_tables(src_hw[1], dst_hw[1]), *plain_image.area_tables(src_hw[0], dst_hw[0])))
+            return plain_image.resize_area_u8, None
+        return plain_image.resize_area_u8, (*plain_image.area_tables(src_hw[1], dst_hw[1]),
+                                            *plain_image.area_tables(src_hw[0], dst_hw[0]))
     raise ValueError(f"no {mode} resize for {dtype}")
 
 
-@functools.lru_cache(maxsize=64)
-def _device_tables(src_hw, dst_hw, mode: str, dtype: torch.dtype, device: torch.device):
-    """The plan's tables on the card (int32 indices and coefficients, float32 weights),
-    uploaded once and complete before any stream reads them."""
-    _, _, tables = _resize_plan(src_hw, dst_hw, mode, dtype)
-    out = tuple(torch.from_numpy(np.ascontiguousarray(t, np.int32 if t.dtype.kind in "iu" else np.float32))
+@functools.lru_cache(maxsize=1024)
+def _device_plan(src_hw, dst_hw, mode: str, dtype: torch.dtype, device: torch.device):
+    """(the int64 (RESIZE_PLAN_INTS,) plan of one shape pair on the card, as
+    csrc/resize.cu's enum Plan reads it: shapes, area factors or table widths, the IPP
+    flag, tiles a row, then the pointers of its tables; the tables, which it points into;
+    the tiles of an output), uploaded once and complete before any stream reads it."""
+    _, tables = _resize_plan(src_hw, dst_hw, mode, dtype)
+    (H, W), (h, w) = src_hw, dst_hw
+    dev = tuple(torch.from_numpy(np.ascontiguousarray(t, np.int32 if t.dtype.kind in "iu" else np.float32))
                 .to(device) for t in (tables or ()))
-    torch.cuda.current_stream(device).synchronize()
-    return out
+    kx = ky = nx = ny = ipp = 0
+    ptr = [0] * 6  # xi, xc, xf, yi, yc, yf
+    if mode == "linear":
+        ipp = int(dtype == torch.float32 and H > 1 and W > 1)
+        x_table, y_table = (1, 4) if dtype == torch.uint8 else (2, 5)
+        ptr[0], ptr[x_table], ptr[3], ptr[y_table] = (t.data_ptr() for t in dev)
+    elif tables is None:
+        kx, ky = W // w, H // h
+    else:
+        nx, ny = tables[0].shape[1], tables[2].shape[1]
+        ptr[0], ptr[2], ptr[3], ptr[5] = (t.data_ptr() for t in dev)
+    tiles_x = -(-w // RESIZE_TILE[1])
+    plan = torch.tensor([H, W, h, w, kx, ky, nx, ny, ipp, tiles_x, *ptr], dtype=torch.int64).to(device)
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()
+    return plan, dev, tiles_x * -(-h // RESIZE_TILE[0])
 
 
 def resize(img: torch.Tensor, size_hw: Tuple[int, int], mode: str = "linear") -> torch.Tensor:
     """K4: cv2.resize of an (H, W, C) image to `size_hw` = (h, w). `mode` "linear"
     (uint8 or float32) or "area" (uint8, a downscale)."""
-    h, w = (int(v) for v in size_hw)
-    if img.dim() != 3 or h < 1 or w < 1:
-        raise ValueError(f"expected an (H, W, C) image and a positive size, got {tuple(img.shape)} -> {size_hw}")
-    H, W, C = img.shape
-    plain, name, tables = _resize_plan((H, W), (h, w), mode, img.dtype)
-    if _route(img) == "cpu":
-        return torch.from_numpy(plain(img.contiguous().numpy(), (h, w), tables))
-    device = img.device
-    _check("img", img, img.dtype, device)
-    out = torch.empty((h, w, C), dtype=img.dtype, device=device)
-    lib = _library(RESIZE_SOURCE)
-    head = (img.data_ptr(), H, W, C, out.data_ptr(), h, w)
-    ptrs = [t.data_ptr() for t in _device_tables((H, W), (h, w), mode, img.dtype, device)]
-    if name == "ssd_resize_linear_u8":
-        err = lib.ssd_resize_linear_u8(*head, *ptrs, _stream(device))
-    elif name == "ssd_resize_linear_f32":
-        err = lib.ssd_resize_linear_f32(*head, *ptrs, int(H > 1 and W > 1), _stream(device))
-    elif tables is None:
-        err = lib.ssd_resize_area_u8(*head, W // w, H // h, None, None, 0, None, None, 0, _stream(device))
+    return resize_batch([img], [size_hw], mode)[0]
+
+
+@functools.lru_cache(maxsize=256)
+def _resize_pack(shapes: Tuple[Tuple[int, int, int, int], ...], channels: int, mode: str, dtype: torch.dtype,
+                 device: torch.device):
+    """A batch's launches, cached for each tuple of (H, W, h, w): ([(first image, images,
+    their plans' pointers, their outputs' byte offsets in the batch's buffer, the most
+    tiles of one of them, the plans themselves)] a launch of up to RESIZE_MAX_ITEMS
+    images, the buffer's elements). A call fills in the sources and the buffer's address.
+    Each launch holds the `_device_plan` tuples its pointers point into, so that no
+    pointer outlives its tensors when that cache drops them (a hit here does not touch
+    it) or when two threads build the same plan at once and one of them is not cached."""
+    launches, at = [], 0
+    element = torch.empty((), dtype=dtype).element_size()
+    for first in range(0, len(shapes), RESIZE_MAX_ITEMS):
+        plans, offsets, tiles = [], [], 1
+        for H, W, h, w in shapes[first:first + RESIZE_MAX_ITEMS]:
+            plans.append(_device_plan((H, W), (h, w), mode, dtype, device))
+            offsets.append(at * element)
+            at += h * w * channels
+            tiles = max(tiles, plans[-1][2])
+        launches.append((first, len(plans), [p[0].data_ptr() for p in plans], offsets, tiles, tuple(plans)))
+    return launches, at
+
+
+def _batch_views(out: torch.Tensor, shapes, channels: int) -> List[torch.Tensor]:
+    """The outputs of a batch as (h, w, C) views of its buffer, in order."""
+    h, w = shapes[0][2:]
+    if all(s[2:] == (h, w) for s in shapes):
+        return list(out.view(len(shapes), h, w, channels).unbind(0))
+    parts = out.split([s[2] * s[3] * channels for s in shapes])
+    return [p.view(s[2], s[3], channels) for p, s in zip(parts, shapes)]
+
+
+def resize_batch(images: Sequence[torch.Tensor], sizes: Sequence[Tuple[int, int]], mode: str = "linear",
+                 out: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """K4 over a batch: cv2.resize of each (H_i, W_i, C) image to its (h_i, w_i), one
+    launch for up to RESIZE_MAX_ITEMS images. The outputs are views, in order, of one
+    buffer: `out` where given (1-D, contiguous, of the images' dtype, sum h_i w_i C
+    elements), else a new one. Every image of one dtype, channel count (1, 3 or 4 on the
+    card) and device; `mode` as `resize`'s. The launches' arguments are cached for each
+    tuple of shapes (`_resize_pack`): a call checks the images, allocates the buffer and
+    makes one ctypes call a launch."""
+    if len(images) != len(sizes):
+        raise ValueError(f"{len(images)} images and {len(sizes)} sizes")
+    if not images:
+        return []
+    dtype, device = images[0].dtype, images[0].device
+    C = images[0].shape[-1]
+    shapes = []
+    for img, (h, w) in zip(images, sizes):
+        shape = img.shape
+        if len(shape) != 3 or h < 1 or w < 1:
+            raise ValueError(f"expected an (H, W, C) image and a positive size, got {tuple(shape)} -> {(h, w)}")
+        if shape[2] != C or img.dtype is not dtype or img.device != device:
+            raise ValueError("a resize batch takes images of one dtype, channel count and device")
+        shapes.append((shape[0], shape[1], int(h), int(w)))
+    shapes = tuple(shapes)
+    if _route(images[0]) == "cuda":
+        if C not in (1, 3, 4):
+            raise ValueError(f"the resize kernel takes 1, 3 or 4 channels, got {C}")
+        if (mode, dtype) not in RESIZE_MODES:
+            _resize_plan(shapes[0][:2], shapes[0][2:], mode, dtype)  # raises, naming what it lacks
+        if any(max(W, w) * C >= 2 ** 31 or max(H, h) >= 2 ** 31 for H, W, h, w in shapes):
+            raise ValueError("the resize kernel takes rows of fewer than 2^31 elements (32-bit offsets within a row)")
+        launches, total = _resize_pack(shapes, C, mode, dtype, device)
     else:
-        nx, ny = tables[0].shape[1], tables[2].shape[1]
-        err = lib.ssd_resize_area_u8(*head, 0, 0, ptrs[0], ptrs[1], nx, ptrs[2], ptrs[3], ny, _stream(device))
-    _cuda_build.check_launch(lib, err, f"{mode} resize kernel launch")
-    resize.launches += 1
-    return out
+        total = sum(h * w for _, _, h, w in shapes) * C
+    single = out is None and len(shapes) == 1
+    if out is None:
+        out = torch.empty(shapes[0][2:] + (C,) if single else (total,), dtype=dtype, device=device)
+    else:
+        _check("out", out, dtype, device)
+        if out.shape != (total,):
+            raise ValueError(f"out has shape {tuple(out.shape)}, the batch writes ({total},)")
+    views = [out] if single else _batch_views(out, shapes, C)
+    if _route(images[0]) == "cpu":
+        for img, (H, W, h, w), view in zip(images, shapes, views):
+            plain, tables = _resize_plan((H, W), (h, w), mode, dtype)
+            view.copy_(torch.from_numpy(plain(img.contiguous().numpy(), (h, w), tables)))
+        return views
+    lib = _library(RESIZE_SOURCE)
+    kind, base, stream = RESIZE_MODES[(mode, dtype)], out.data_ptr(), _stream(device)
+    for first, count, plans, offsets, tiles, _ in launches:
+        items = []
+        for img, plan, offset in zip(images[first:first + count], plans, offsets):
+            if not img.is_contiguous():
+                raise ValueError("img must be contiguous")
+            items += (img.data_ptr(), base + offset, plan)
+        err = lib.ssd_resize_batch(kind, C, (ctypes.c_longlong * len(items))(*items), count, tiles, stream)
+        _cuda_build.check_launch(lib, err, f"{mode} resize kernel launch")
+        resize.launches += 1
+    return views
 
 
 # ---------------------------------------------------------------------------- K5
@@ -408,12 +502,7 @@ def decode_png_batch(pngs: List[PngImage], device: torch.device) -> List[torch.T
     batch = codec.png_batch(pngs)
     if device.type == "cuda":
         batch = batch.to(device)
-    rgb = png_decode(batch)
-    out, at = [], 0
-    for h, w in batch.out_shapes:
-        out.append(rgb[at:at + h * w * 3].view(h, w, 3))
-        at += h * w * 3
-    return out
+    return rgb_views(png_decode(batch), batch.out_shapes)
 
 
 def decode_png(png: PngImage, device: torch.device) -> torch.Tensor:
@@ -465,19 +554,25 @@ def lzw_decode(batch: GifBatch, stats: Optional[torch.Tensor] = None, out: Optio
     return indices, status
 
 
-def decode_lzw_batch(gifs: List[GifImage], tiffs: List[codec.TiffImage], device: torch.device
-                     ) -> List[torch.Tensor]:
+def decode_lzw_batch(gifs: List[GifImage], tiffs: List[codec.TiffImage], device: torch.device,
+                     jpeg_pixels: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """Parsed GIFs and TIFFs -> uint8 (H, W, 3) RGB on `device`, the GIFs first: one K9
     call for every GIF frame and TIFF LZW chunk of the batch, one K10 call for the TIFFs'
-    chunks, then K8 on each frame's indices and each TIFF's image buffer. Waits for K9's
-    status only where the batch holds GIFs, and raises ValueError where cv2's GIF decoder
-    returns None (a TIFF chunk that fails decodes in part, as libtiff leaves it, on the
-    device)."""
+    chunks, then K8 on each frame's indices and each TIFF's image buffer. `jpeg_pixels`:
+    the TIFFs' JPEG chunks as the JPEG kernels decoded them (1-D uint8, their RGB frames
+    back to back in codec.tiff_jpeg_chunks' order), which K10 places straight from there,
+    the rest of a chunk zero, as libtiff leaves a frame smaller than its chunk. Waits for
+    K9's status only where the batch holds GIFs, and raises ValueError where cv2's GIF
+    decoder returns None (a TIFF chunk that fails decodes in part, as libtiff leaves it,
+    on the device)."""
     tiff = codec.tiff_batch(tiffs) if tiffs else None
     host = codec.gif_batch(gifs, tiff)
     cuda = device.type == "cuda"
     lzw_out = torch.zeros((max(host.total_indices, 1),), dtype=torch.uint8, device=device)
     if tiff is not None:
+        held = 0 if jpeg_pixels is None else jpeg_pixels.numel()
+        if held < tiff.jpeg_bytes:
+            raise ValueError(f"{held} bytes of decoded JPEG chunks for the batch's {tiff.jpeg_bytes}")
         if cuda:
             tiff = tiff.to(device)
         lzw_out[host.frame_indices:host.total_indices].copy_(tiff.decoded, non_blocking=True)
@@ -496,7 +591,7 @@ def decode_lzw_batch(gifs: List[GifImage], tiffs: List[codec.TiffImage], device:
         out.append(_expand(gif.raw(), frame, device))
     if tiff is not None:
         images = tiff_assemble(lzw_out[host.frame_indices:host.total_indices], tiff.chunks, status[len(gifs):],
-                               tiff.image_bytes)
+                               tiff.image_bytes, jpeg_pixels)
         for im, at in zip(tiffs, tiff.image_offsets):
             out.append(_expand(im.raw(), images[at:at + im.nbytes], device))
     return out
@@ -510,25 +605,28 @@ def _expand(raw: codec.RawImage, data: torch.Tensor, device: torch.device) -> to
 
 
 # ---------------------------------------------------------------------------- K10
-def tiff_assemble(decoded: torch.Tensor, chunks: torch.Tensor, status: torch.Tensor, image_bytes: int
-                  ) -> torch.Tensor:
+def tiff_assemble(decoded: torch.Tensor, chunks: torch.Tensor, status: torch.Tensor, image_bytes: int,
+                  jpeg: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K10: a TIFF batch's decoded chunks (codec.TIFF_CHUNK_INTS rows; `status`, K9's, for
     the LZW ones) -> the uint8 (image_bytes,) image buffer: the horizontal predictor
-    undone, big-endian 16-bit samples swapped, each chunk in its rectangle. One launch, a
-    CTA a chunk, a warp a row."""
+    undone, big-endian 16-bit samples swapped, each chunk in its rectangle; the JPEG
+    chunks read from `jpeg`, the JPEG kernels' RGB of them (None: they stay zero). One
+    launch, a CTA a chunk, a warp a row."""
     if _route(decoded) == "cpu":
         return torch.from_numpy(plain_image.tiff_assemble(decoded.numpy(), chunks.numpy(), status.numpy(),
-                                                          image_bytes))
+                                                          image_bytes, None if jpeg is None else jpeg.numpy()))
     device = decoded.device
     _check("decoded", decoded, torch.uint8, device)
     _check("chunks", chunks, torch.int32, device)
     _check("status", status, torch.int32, device)
+    if jpeg is not None:
+        _check("jpeg", jpeg, torch.uint8, device)
     out = torch.zeros((max(image_bytes, 1),), dtype=torch.uint8, device=device)
     if chunks.shape[0] == 0:
         return out
     lib = _library(TIFF_SOURCE)
-    err = lib.ssd_tiff_assemble(decoded.data_ptr(), chunks.data_ptr(), chunks.shape[0], status.data_ptr(),
-                                out.data_ptr(), _stream(device))
+    err = lib.ssd_tiff_assemble(decoded.data_ptr(), None if jpeg is None else jpeg.data_ptr(), chunks.data_ptr(),
+                                chunks.shape[0], status.data_ptr(), out.data_ptr(), _stream(device))
     _cuda_build.check_launch(lib, err, "TIFF assembly kernel launch")
     tiff_assemble.launches += 1
     return out

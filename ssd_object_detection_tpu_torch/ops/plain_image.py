@@ -58,7 +58,7 @@ What each reproduces, bit for bit:
 from __future__ import annotations
 
 import functools
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -1124,7 +1124,8 @@ def lzw_decode(data: np.ndarray, gifs: np.ndarray, total: int, out: np.ndarray =
 
 
 # ---------------------------------------------------------------------------- K10
-def tiff_assemble(decoded: np.ndarray, chunks: np.ndarray, status: np.ndarray, image_bytes: int) -> np.ndarray:
+def tiff_assemble(decoded: np.ndarray, chunks: np.ndarray, status: np.ndarray, image_bytes: int,
+                  jpeg: Optional[np.ndarray] = None) -> np.ndarray:
     """K10: every TIFF chunk's decoded rows (codec.TIFF_CHUNK_INTS rows; `status`, K9's,
     for the LZW ones) -> the uint8 (image_bytes,) image buffer, zero where no chunk lands:
     the horizontal predictor undone a row at a time (each sample plus the one a pixel
@@ -1132,9 +1133,16 @@ def tiff_assemble(decoded: np.ndarray, chunks: np.ndarray, status: np.ndarray, i
     little-endian, and each chunk's rows placed in its rectangle, cut at the image's
     edge. A chunk whose decoding failed is placed as it decoded, as libtiff leaves it.
     The placed rows are read `pitch` bytes apart (libtiff's skew in a tile cut at the
-    right edge)."""
+    right edge). A JPEG chunk's rows come from `jpeg`, the JPEG kernels' RGB (None: the
+    chunk stays zero), every `jpeg_step`-th byte of its frame's rows."""
     out = np.zeros(max(image_bytes, 1), np.uint8)
-    for src, rows, row_bytes, dst, stride, placed, predictor, samples, swab, stream, width, pitch in chunks.tolist():
+    for (src, rows, row_bytes, dst, stride, placed, predictor, samples, swab, stream, width, pitch,
+         jpeg_step) in chunks.tolist():
+        at = np.arange(rows)[:, None]
+        if jpeg_step:
+            if jpeg is not None:
+                out[dst + at * stride + np.arange(placed)] = jpeg[src + at * pitch + np.arange(placed) * jpeg_step]
+            continue
         if stream >= 0 and status[stream] != codec.GIF_OK:
             predictor, swab = 0, 0
         block = decoded[src:src + rows * row_bytes].reshape(rows, row_bytes)
@@ -1152,6 +1160,5 @@ def tiff_assemble(decoded: np.ndarray, chunks: np.ndarray, status: np.ndarray, i
             block = block.copy()
             block[:, :2 * n] = np.stack([v & 255, v >> 8], -1).astype(np.uint8).reshape(rows, 2 * n)
         flat = block.reshape(-1)
-        at = np.arange(rows)[:, None]
         out[dst + at * stride + np.arange(placed)] = flat[at * pitch + np.arange(placed)]
     return out

@@ -27,9 +27,18 @@ Images are drawn as tools/make_fake_coco.py draws them (shapes over smooth gradi
     (a DC first scan after the DC refinement, with and without restart intervals, and
     an AC first scan after its refinement);
   - refused (UnsupportedImage, cv2 reads them): an AVIF body (cv2's encoder), the same
-    with its major brand `mif1` (`avif` only among the compatible brands), BigTIFFs in
-    both byte orders, PAMs with alpha (cv2 fills most of their pixels from memory it
-    never wrote) and a 1-channel PFM;
+    with its major brand `mif1` (`avif` only among the compatible brands), PAMs with
+    alpha (cv2 fills most of their pixels from memory it never wrote), a 1-channel PFM,
+    a CCITT Group 4 TIFF and an uncompressed YCbCr TIFF;
+  - TIFFs (PIL's libtiff writer, cv2's, and a small writer here) of every kind the
+    reader reads, and JPEG-in-TIFFs: PIL's one-strip RGB, YCbCr and gray, and strips or
+    tiles written here from cv2's JPEG streams with their tables moved into tag 347 (4:2:0,
+    4:2:2, 4:4:4, RGB, gray, tiles cut at the edges, a restart interval, progressive
+    strips, orientation 6, a cut strip, a last strip encoded taller than its rows, one
+    640x480 file of 16-row strips; and what cv2 returns None for among them);
+  - `data/tiff_compressions.json` (`--table`): cv2.imdecode (and cv2.imread) of ten small
+    TIFFs at every compression code 0-65535 (compression_table; `--skip-compressions`
+    leaves it);
   - PAMs (P7) as cv2 5.0 reads them: cv2's own (RGB, no TUPLTYPE), RGB, GRAYSCALE and
     BLACKANDWHITE with and without TUPLTYPE, MAXVAL 1 bits at DEPTH 1, 3 and 4 on a width
     not a multiple of 8, MAXVAL 100, 1000 and 65535, a header with comments, CR line
@@ -71,6 +80,7 @@ import zlib
 import numpy as np
 
 FIXTURES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data", "fixtures")
+COMPRESSION_TABLE = os.path.join(os.path.dirname(FIXTURES), "tiff_compressions.json")
 CANVAS = (640, 640)
 SAMPLINGS = ("444", "422", "420", "440")
 SEAMS = (1, 7, 8, 9, 15, 16, 17)
@@ -78,7 +88,7 @@ NEW_SEAMS = (1, 9, 17, 33)  # widths at 4:1:1 and 4:1:0 (MCUs 32 wide); heights 
 # fixtures the port refuses though cv2 reads them: name -> what the refusal names
 REFUSED = {"other_8x6.avif": "AVIF", "other_gray_8x6.pfm": "1-channel PFM", "other_mif1_8x6.avif": "AVIF",
            "pam_rgb_alpha_37x23.pam": "alpha", "pam_gray_alpha_37x23.pam": "alpha",
-           "tiff_refused_jpeg_37x23.tif": "JPEG-in-TIFF", "tiff_refused_group4_37x23.tif": "CCITT Group 4"}
+           "tiff_refused_group4_37x23.tif": "CCITT Group 4", "tiff_refused_ycbcr_37x23.tif": "YCbCr"}
 # fixtures cv2 returns None for, where the port raises ValueError: name -> what is wrong
 INVALID = {
     "gif_invalid_short_37x23.gif": "the LZW data ends a pixel short of the frame",
@@ -107,6 +117,12 @@ INVALID = {
     "tiff_invalid_int32_37x23.tif": "32-bit samples",
     "tiff_invalid_2bit_37x23.tif": "2-bit gray samples",
     "tiff_invalid_strip_past_end_37x23.tif": "a strip whose bytes run past the file",
+    "tiff_jpeg_invalid_garbage_67x45.tif": "a JPEG strip of bytes that are no JPEG",
+    "tiff_jpeg_invalid_subsampling_67x45.tif": "4:2:0 JPEG strips under YCbCrSubsampling 1 x 1",
+    "tiff_jpeg_invalid_rgb_420_67x45.tif": "4:2:0 JPEG strips in an RGB TIFF",
+    "tiff_jpeg_invalid_components_67x45.tif": "gray JPEG strips in an RGB TIFF",
+    "tiff_jpeg_invalid_tall_strip_67x45.tif": "a JPEG taller than its strip, not the last",
+    "tiff_invalid_lzma_37x23.tif": "LZMA compression (not configured in cv2's libtiff)",
 }
 
 
@@ -540,13 +556,13 @@ def bigtiff(pixels: np.ndarray, big_endian: bool = False) -> bytes:
     return out + struct.pack(e + "Q", 0) + body
 
 
-_TIFF_TYPES = {3: "H", 4: "I", 16: "Q"}
+_TIFF_TYPES = {3: "H", 4: "I", 7: "B", 16: "Q"}
 
 
 def tiff(tags: dict, chunks: list, big_endian: bool = False, big: bool = False, tiled: bool = False,
          counts=None) -> bytes:
     """A TIFF (a BigTIFF where `big`) of one directory: `tags` {tag: (type, values)} of
-    SHORT, LONG or LONG8 values, the chunks' bytes after the directory, their offsets and
+    SHORT, LONG, UNDEFINED or LONG8 values, the chunks' bytes after the directory, their offsets and
     byte counts (`counts`, where given) in StripOffsets / StripByteCounts or the tile tags."""
     e = ">" if big_endian else "<"
     inline, entry = (8, "HHQ") if big else (4, "HHI")
@@ -747,8 +763,10 @@ def tiff_fixtures(cv2) -> dict:
     files["tiff_lzw_widths_100x100.tif"] = tiff(tiff_tags(100, 100, 8, 1, 1, 5),
                                                 [tiff_lzw_pack([256] + noise[:4000].tolist() + [256]
                                                                + noise[4000:].tolist() + [257])])
-    files["tiff_refused_jpeg_37x23.tif"] = pil_tiff(modes["RGB"], "jpeg")
+    for mode in ("RGB", "YCbCr", "L"):  # libtiff's JPEG codec through PIL: one strip each
+        files[f"tiff_jpeg_pil_{mode.lower()}_37x23.tif"] = pil_tiff(modes["RGB"].convert(mode), "jpeg")
     files["tiff_refused_group4_37x23.tif"] = pil_tiff(modes["1"], "group4")
+    files["tiff_refused_ycbcr_37x23.tif"] = pil_tiff(modes["RGB"].convert("YCbCr"), "raw")
     files["tiff_invalid_float_37x23.tif"] = pil_tiff(Image.fromarray(gray.astype(np.float32)), "raw")
     files["tiff_invalid_int32_37x23.tif"] = pil_tiff(Image.fromarray(gray.astype(np.int32)), "raw")
     files["tiff_invalid_2bit_37x23.tif"] = tiff(tiff_tags(37, 23, 2, 1, 1), [bytes(23 * 10)])
@@ -756,6 +774,248 @@ def tiff_fixtures(cv2) -> dict:
                                                           [lzw(rgb[:12].tobytes()), lzw(rgb[12:].tobytes())],
                                                           counts=[len(lzw(rgb[:12].tobytes())), 10 ** 6])
     return files
+
+
+# ---------------------------------------------------------------------------- JPEG-in-TIFF
+def jpeg_tables(streams: list) -> tuple:
+    """(JPEGTables, chunks): the DQT and DHT segments before the frame that every stream
+    holds alike, moved out of the streams into an SOI ... EOI tables stream, as libtiff's
+    encoder writes them (the rest, a progressive file's DHTs between scans among them,
+    stay in each chunk)."""
+    heads = []
+    for data in streams:
+        segs = jpeg_segments(data)
+        sof = next(i for i, (m, _, _) in enumerate(segs) if m in (0xC0, 0xC1, 0xC2))
+        heads.append([data[a:b] for m, a, b in segs[:sof] if m in (0xDB, 0xC4)])
+    shared = [h for h in heads[0] if all(h in other for other in heads[1:])]
+    chunks = []
+    for data in streams:
+        for h in shared:
+            data = data.replace(h, b"", 1)
+        chunks.append(data)
+    return b"\xff\xd8" + b"".join(shared) + b"\xff\xd9", chunks
+
+
+def set_tags(data: bytes, values: dict) -> bytes:
+    """A little-endian classic TIFF with the one-value SHORT or LONG fields of `values` {tag:
+    value} set in its first directory."""
+    out = bytearray(data)
+    at = struct.unpack_from("<I", out, 4)[0]
+    for i in range(struct.unpack_from("<H", out, at)[0]):
+        e = at + 2 + 12 * i
+        tag, typ = struct.unpack_from("<HH", out, e)
+        if tag in values:
+            struct.pack_into("<I", out, e + 8, 0)
+            struct.pack_into("<H" if typ == 3 else "<I", out, e + 8, values[tag])
+    return bytes(out)
+
+
+def set_chunk(data: bytes, index: int, fill: bytes) -> bytes:
+    """A little-endian classic TIFF of strips with strip `index`'s bytes overwritten by
+    `fill` (repeated to its length)."""
+    at = struct.unpack_from("<I", data, 4)[0]
+    fields = {}
+    for i in range(struct.unpack_from("<H", data, at)[0]):
+        tag, typ, count, value = struct.unpack_from("<HHII", data, at + 2 + 12 * i)
+        fields[tag] = (count, value)
+
+    def values(tag):
+        count, value = fields[tag]
+        return [value] if count == 1 else list(struct.unpack_from(f"<{count}I", data, value))
+
+    o, c = values(273)[index], values(279)[index]
+    return data[:o] + (fill * (c // len(fill) + 1))[:c] + data[o + c:]
+
+
+def jpeg_tiff(bgr: np.ndarray, cv2, kind: str = "ycbcr", sampling: str = "420", rows: int | None = None,
+              tile: tuple | None = None, restart: int = 0, progressive: bool = False, tall: int | None = None,
+              cut: int | None = None, subsampling: tuple | None = None, quality: int = 90, **more) -> bytes:
+    """A JPEG-in-TIFF (compression 7) of a BGR image: `kind` "ycbcr" (photometric 6, cv2's
+    JPEGs at `sampling`, YCbCrSubsampling from it or `subsampling`), "rgb" (photometric 2,
+    R, G and B as three 1 x 1 components without a colour transform) or "gray"; strips of
+    `rows` rows (strip `tall` encoded taller, black rows below it: the last strip to `rows`
+    rows, another to twice that) or (height, width) `tile`s padded by repeating the
+    edge; the tables in
+    tag 347; chunk `cut` cut inside its entropy-coded data, without EOI."""
+    h, w = bgr.shape[:2]
+    img = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY) if kind == "gray" else bgr
+    if tile:
+        th, tw = tile
+        pad = np.pad(img, ((0, -h % th), (0, -w % tw)) + ((0, 0),) * (img.ndim - 2), mode="edge")
+        parts = [pad[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+    else:
+        rows = rows or h
+        parts = [img[y:y + rows] for y in range(0, h, rows)]
+        if tall is not None:
+            want = rows if tall in (-1, len(parts) - 1) else 2 * rows
+            parts[tall] = np.pad(parts[tall], ((0, want - len(parts[tall])),) + ((0, 0),) * (img.ndim - 1))
+
+    def encode(part):
+        if kind == "rgb":
+            return encode_baseline([part[..., c] for c in (2, 1, 0)], [(1, 1)] * 3, cv2, quality=quality)
+        return jpeg(part, cv2, quality=quality, sampling=sampling, restart=restart, progressive=progressive)
+
+    tables, chunks = jpeg_tables([encode(np.ascontiguousarray(p)) for p in parts])
+    if cut is not None:
+        sos = [(a, b) for m, a, b in jpeg_segments(chunks[cut]) if m == 0xDA][-1]
+        chunks[cut] = chunks[cut][:sos[0] + (sos[1] - sos[0]) * 3 // 5]
+    spp = 1 if kind == "gray" else 3
+    tags = tiff_tags(w, h, 8, spp, {"ycbcr": 6, "rgb": 2, "gray": 1}[kind], 7, rows=rows, **more)
+    tags[347] = (7, list(tables))
+    if kind == "ycbcr":
+        factors = {"444": (1, 1), "422": (2, 1), "420": (2, 2), "440": (1, 2), "411": (4, 1)}[sampling]
+        tags[530] = (3, list(subsampling or factors))
+    if tile:
+        del tags[278]
+        tags.update({322: (3, [tile[1]]), 323: (3, [tile[0]])})
+    return tiff(tags, chunks, tiled=bool(tile))
+
+
+def jpeg_tiff_fixtures(cv2) -> dict:
+    """JPEG-in-TIFFs written here from cv2's JPEG streams (libtiff's layout: the tables in
+    tag 347, a stream a chunk): strips at 4:2:0, 4:2:2 and 4:4:4, RGB and gray strips, tiles
+    cut at the right and bottom edges (YCbCr and gray), a restart interval, progressive
+    strips, orientation 6, a cut strip, a last strip as tall as the others, and one
+    640x480 4:2:0 file of 16-row strips; and the ones cv2 returns None for."""
+    bgr = draw(45, 67, 83, cv2)
+    files = {}
+    for s in ("420", "422", "444"):
+        files[f"tiff_jpeg_strips_{s}_67x45.tif"] = jpeg_tiff(bgr, cv2, sampling=s, rows=16)
+    files["tiff_jpeg_rgb_strips_67x45.tif"] = jpeg_tiff(bgr, cv2, "rgb", rows=16)
+    files["tiff_jpeg_gray_strips_67x45.tif"] = jpeg_tiff(bgr, cv2, "gray", rows=8)
+    files["tiff_jpeg_tiles_420_67x45.tif"] = jpeg_tiff(bgr, cv2, tile=(16, 32))
+    files["tiff_jpeg_gray_tiles_67x45.tif"] = jpeg_tiff(bgr, cv2, "gray", tile=(32, 16))
+    files["tiff_jpeg_restart_67x45.tif"] = jpeg_tiff(bgr, cv2, rows=32, restart=2)
+    files["tiff_jpeg_progressive_67x45.tif"] = jpeg_tiff(bgr, cv2, rows=16, progressive=True)
+    files["tiff_jpeg_orientation6_67x45.tif"] = jpeg_tiff(bgr, cv2, rows=16, orientation=6)
+    files["tiff_jpeg_cut_67x45.tif"] = jpeg_tiff(bgr, cv2, rows=16, cut=1)
+    # a last strip of 14 rows encoded 16 tall: its last row's chroma reads the black row below
+    files["tiff_jpeg_tall_last_67x46.tif"] = jpeg_tiff(draw(46, 67, 85, cv2), cv2, rows=16, tall=-1)
+    files["tiff_jpeg_640x480.tif"] = jpeg_tiff(draw(480, 640, 84, cv2), cv2, rows=16)
+    strips = files["tiff_jpeg_strips_420_67x45.tif"]
+    files["tiff_jpeg_invalid_garbage_67x45.tif"] = set_chunk(strips, 1, bytes(range(7, 250, 3)))
+    files["tiff_jpeg_invalid_subsampling_67x45.tif"] = jpeg_tiff(bgr, cv2, rows=16, subsampling=(1, 1))
+    files["tiff_jpeg_invalid_rgb_420_67x45.tif"] = set_tags(strips, {262: 2})
+    files["tiff_jpeg_invalid_components_67x45.tif"] = set_tags(jpeg_tiff(bgr, cv2, "gray", rows=16), {277: 3, 262: 2})
+    files["tiff_jpeg_invalid_tall_strip_67x45.tif"] = jpeg_tiff(bgr, cv2, rows=16, tall=0)
+    files["tiff_invalid_lzma_37x23.tif"] = set_tags(tiff(tiff_tags(37, 23, 8, 3, 2), [bgr[:23, :37].tobytes()]),
+                                            {259: 34925})
+    return files
+
+
+# ---------------------------------------------------------------------------- TIFF compressions
+# libtiff 4.7's codecs (tif_codec.c): those cv2's build lacks fail TIFFRGBAImageOK
+LIBTIFF_CODECS = {1: "None", 2: "CCITT RLE", 3: "CCITT Fax3", 4: "CCITT Fax4", 5: "LZW", 6: "OJPEG", 7: "JPEG",
+                  8: "AdobeDeflate", 32766: "NeXT", 32771: "CCITT RLEW", 32773: "PackBits", 32809: "ThunderScan",
+                  32909: "PixarLog", 32946: "Deflate", 34661: "JBIG", 34676: "SGILog", 34677: "SGILog24",
+                  34887: "LERC", 34925: "LZMA", 50000: "ZSTD", 50001: "WEBP"}
+PORT_CODECS = (1, 5, 7, 8, 32773, 32946)  # the port's data/codec.py decodes these
+
+
+def compression_bases() -> dict:
+    """name -> a little-endian TIFF (seeded numpy samples, uncompressed) whose compression
+    code the probe sets: 1-bit MinIsWhite, 8-bit gray, 8-bit and 4-bit palette, 8- and
+    16-bit RGB, 16-bit RGBA (unassociated), 16-bit LogLuv, in strips of 8 rows; 8-bit RGB
+    and gray in 16 x 16 tiles cut at the right and bottom edges."""
+    rng = np.random.default_rng(1800)
+    w, h = 37, 23
+    bases = {}
+
+    def strips(tags, pixels):
+        rows = pixels.reshape(h, -1)
+        return tiff({**tags, 278: (4, [8])}, [rows[y:y + 8].tobytes() for y in range(0, h, 8)])
+
+    def tiles(tags, pixels):
+        t = {**tags, 322: (3, [16]), 323: (3, [16])}
+        del t[278]
+        pad = np.zeros((32, 48) + pixels.shape[2:], pixels.dtype)
+        pad[:h, :w] = pixels
+        return tiff(t, [pad[y:y + 16, x:x + 16].tobytes() for y in range(0, h, 16) for x in range(0, w, 16)],
+                    tiled=True)
+
+    rgb = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+    gray = rgb[..., 1]
+    bases["miniswhite_1bit"] = tiff(tiff_tags(w, h, 1, 1, 0), [np.packbits(gray > 127, 1).tobytes()])
+    bases["gray_8bit"] = strips(tiff_tags(w, h, 8, 1, 1), gray)
+    bases["palette_8bit"] = strips(tiff_tags(w, h, 8, 1, 3, colormap=rng.integers(0, 65536, 768)), gray)
+    nibbles = np.packbits(np.unpackbits((gray >> 4)[..., None], -1)[..., 4:].reshape(h, -1), 1)
+    bases["palette_4bit"] = tiff(tiff_tags(w, h, 4, 1, 3, colormap=rng.integers(0, 65536, 48)), [nibbles.tobytes()])
+    bases["rgb_8bit"] = strips(tiff_tags(w, h, 8, 3, 2), rgb)
+    wide = rng.integers(0, 65536, (h, w, 4)).astype("<u2")
+    bases["rgb_16bit"] = strips(tiff_tags(w, h, 16, 3, 2), wide[..., :3])
+    bases["rgba_16bit"] = strips(tiff_tags(w, h, 16, 4, 2, extra=2), wide)
+    bases["logluv_16bit"] = strips(tiff_tags(w, h, 16, 3, 32845), wide[..., :3])
+    bases["rgb_8bit_tiles"] = tiles(tiff_tags(w, h, 8, 3, 2), rgb)
+    bases["gray_8bit_tiles"] = tiles(tiff_tags(w, h, 8, 1, 1), gray)
+    return bases
+
+
+def _ranges(codes: list) -> list:
+    out = []
+    for c in codes:
+        if out and out[-1][1] == c - 1:
+            out[-1][1] = c
+        else:
+            out.append([c, c])
+    return out
+
+
+def compression_table(cv2, tmp: str) -> dict:
+    """cv2.imdecode of each base at every compression code 0-65535: per base the code
+    ranges cv2 returns None for ("none"), decodes to the image of zero samples ("zero": the
+    digest of cv2's read of the base whose chunks are LZW data without a Clear, which
+    libtiff decodes nothing of), or decodes to something else ("decodes", each code's
+    digest); "lacks": the codes of a libtiff codec the port lacks, where cv2 does not
+    return None (the port refuses them); and "imread_differs": {code: what cv2.imread of
+    the bytes as a file in `tmp` gives where it differs from cv2.imdecode ("none", "zero",
+    "decodes")}, every code probed."""
+    path = os.path.join(tmp, "probe.tif")
+
+    def decode(data):
+        a = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        return None if a is None else np.ascontiguousarray(a[..., ::-1])
+
+    def read(data):
+        with open(path, "wb") as f:
+            f.write(data)
+        a = cv2.imread(path, cv2.IMREAD_COLOR)
+        return None if a is None else np.ascontiguousarray(a[..., ::-1])
+
+    out = {}
+    for name, base in compression_bases().items():
+        at = struct.unpack_from("<I", base, 4)[0]
+        n = struct.unpack_from("<H", base, at)[0]
+        entries = [struct.unpack_from("<HHII", base, at + 2 + 12 * i) for i in range(n)]
+        fields = {tag: (count, value) for tag, _, count, value in entries}
+        off_tag, count_tag = (324, 325) if 324 in fields else (273, 279)
+
+        def values(tag):
+            count, value = fields[tag]
+            return [value] if count == 1 else list(struct.unpack_from(f"<{count}I", base, value))
+
+        empty = bytearray(base)  # every chunk's first two bytes zero: LZW without a Clear
+        for o in values(off_tag):
+            empty[o:o + 2] = b"\0\0"
+        zero = decode(set_tags(bytes(empty), {259: 5}))
+
+        def outcome(img):
+            return "none" if img is None else "zero" if np.array_equal(img, zero) else "decodes"
+
+        classes = {"none": [], "zero": [], "decodes": []}
+        decoded, differs = {}, {}
+        for code in range(65536):
+            data = set_tags(base, {259: code})
+            img = decode(data)
+            classes[outcome(img)].append(code)
+            if outcome(img) == "decodes":
+                decoded[str(code)] = sha(img)
+            by_file = read(data)
+            if outcome(by_file) != outcome(img) or (img is not None and not np.array_equal(img, by_file)):
+                differs[str(code)] = outcome(by_file)
+        lacks = [c for c in sorted(LIBTIFF_CODECS) if c not in PORT_CODECS and c not in classes["none"]]
+        out[name] = {"zero_sha256": sha(zero), "decoded_sha256": decoded, "lacks": lacks, "imread_differs": differs,
+                     **{k: _ranges(v) for k, v in classes.items()}}
+    return out
 
 
 def packbits(data: bytes) -> bytes:
@@ -1234,6 +1494,7 @@ def fixture_set(cv2) -> dict:
     files.update(hdr_fixtures(cv2))
     files.update(pam_fixtures(cv2))
     files.update(tiff_fixtures(cv2))
+    files.update(jpeg_tiff_fixtures(cv2))
     return files
 
 
@@ -1280,6 +1541,9 @@ def main(argv=None) -> None:
 
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--out", default=FIXTURES)
+    p.add_argument("--table", default=COMPRESSION_TABLE, help="where the TIFF compression probe goes")
+    p.add_argument("--skip-compressions", action="store_true",
+                   help="leave the table (the probe of every TIFF compression code takes minutes)")
     args = p.parse_args(argv)
     os.makedirs(args.out, exist_ok=True)
     files = fixture_set(cv2)
@@ -1290,6 +1554,13 @@ def main(argv=None) -> None:
               "canvas": list(CANVAS), "images": digests(files, cv2), "invalid": invalid_record(files, cv2)}
     with open(os.path.join(args.out, "digests.json"), "w") as f:
         json.dump(record, f, indent=1, sort_keys=True)
+    if not args.skip_compressions:
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            table = {"cv2": cv2.__version__, "bases": compression_table(cv2, tmp)}
+        with open(args.table, "w") as f:
+            json.dump(table, f, indent=1, sort_keys=True)
     print(f"{len(files)} fixtures, {sum(map(len, files.values()))} bytes -> {args.out}")
 
 

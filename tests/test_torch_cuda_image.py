@@ -166,6 +166,33 @@ def test_resize_equals_plain(cuda_device, src, dst, mode, dtype):
     assert torch.equal(got.cpu(), cuda_image.resize(img, dst, mode))
 
 
+def test_resize_survives_its_plan_cache_turning_over(cuda_device):
+    """A hot shape pair resized between 1,100 other pairs (more than `_device_plan`
+    keeps) stays in the launch-pack cache while its plan falls out of the plan cache; its
+    output still equals the plain version's, as does the first of the others again."""
+    rng = np.random.default_rng(11)
+    hot = torch.from_numpy(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8))
+    small = torch.from_numpy(rng.integers(0, 256, (16, 16, 3), dtype=np.uint8))
+    hot_gpu, small_gpu = hot.to(cuda_device), small.to(cuda_device)
+    want = cuda_image.resize(hot, (30, 30))
+    for i in range(1100):
+        if i % 50 == 0:
+            assert torch.equal(cuda_image.resize(hot_gpu, (30, 30)).cpu(), want), i
+        cuda_image.resize(small_gpu, (1 + i % 40, 1 + i // 40))
+    assert torch.equal(cuda_image.resize(hot_gpu, (30, 30)).cpu(), want)
+    assert torch.equal(cuda_image.resize(small_gpu, (1, 1)).cpu(), cuda_image.resize(small, (1, 1)))
+
+
+def test_resize_refuses_rows_past_32_bit_offsets(cuda_device):
+    """A source row of 2^31 elements or more is refused before any launch (a row's offsets
+    are 32-bit in the kernel; its row bases are 64-bit)."""
+    wide = torch.zeros((1, 1, 3), dtype=torch.uint8, device=cuda_device).expand(2, 2 ** 30, 3)
+    before = cuda_image.resize.launches
+    with pytest.raises(ValueError, match="2\\^31"):
+        cuda_image.resize(wide, (1, 300), "area")
+    assert cuda_image.resize.launches == before
+
+
 def test_png_kernel_equals_plain(cuda_device):
     """K5 (the row wavefront and the expansion) on each PNG fixture alone: one launch a call."""
     for name in PNGS:
@@ -313,17 +340,31 @@ def _tiffs(names):
     return [codec.parse_tiff(_bytes(n)) for n in names]
 
 
+def _jpeg_chunk_pixels(tif, device):
+    """A TIFF's JPEG chunks through K1 and the fused K2 + K3 (their plain versions on the
+    CPU), as decode_images feeds them to decode_lzw_batch."""
+    chunks = codec.tiff_jpeg_chunks([tif])
+    if not chunks:
+        return None
+    batch = codec.jpeg_batch(chunks)
+    batch = batch.to(device) if device.type == "cuda" else batch
+    return cuda_image.idct_color(cuda_image.decode_entropy(batch)[0], batch)
+
+
 @pytest.mark.parametrize("name", TIFFS)
 def test_tiff_kernels_equal_plain(cuda_device, name):
     """K9 (its TIFF flavour, where the TIFF has LZW chunks), K10 and K8 on each TIFF
-    fixture: one launch each, equal to the plain versions."""
+    fixture (a JPEG-in-TIFF's chunks decoded first by the JPEG kernels): one launch each,
+    equal to the plain versions."""
     tif = codec.parse_tiff(_bytes(name))
-    lzw = any(c.decoded is None for c in tif.chunks)
+    lzw = any(c.decoded is None and c.jpeg is None for c in tif.chunks)
+    pixels = _jpeg_chunk_pixels(tif, cuda_device)
     before = (cuda_image.lzw_decode.launches, cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches)
-    got = cuda_image.decode_lzw_batch([], [tif], cuda_device)[0]
+    got = cuda_image.decode_lzw_batch([], [tif], cuda_device, pixels)[0]
     after = (cuda_image.lzw_decode.launches, cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches)
     assert after == (before[0] + lzw, before[1] + 1, before[2] + 1)
-    assert torch.equal(got.cpu(), cuda_image.decode_lzw_batch([], [tif], torch.device("cpu"))[0])
+    cpu = torch.device("cpu")
+    assert torch.equal(got.cpu(), cuda_image.decode_lzw_batch([], [tif], cpu, _jpeg_chunk_pixels(tif, cpu))[0])
 
 
 def test_tiff_lzw_flavour_and_assembly_equal_plain_in_one_launch(cuda_device):
@@ -348,3 +389,40 @@ def test_tiff_lzw_flavour_and_assembly_equal_plain_in_one_launch(cuda_device):
     assert cuda_image.tiff_assemble.launches == before + 1
     want = cuda_image.tiff_assemble(out[batch.frame_indices:], tiff.chunks, want_status[len(gifs):], tiff.image_bytes)
     assert torch.equal(got.cpu(), want)
+
+
+def test_jpeg_in_tiffs_decode_in_the_jpeg_launches(cuda_device):
+    """Every JPEG-in-TIFF fixture and the baseline JPEG fixtures in one decode_images call:
+    the TIFFs' chunks are images of the one JPEG batch, so the fused K2 + K3 launches once
+    and K1 once a step; every image equals cv2's digest."""
+    names = [n for n in TIFFS if n.startswith("tiff_jpeg_")] + ["coco_640x480_420.jpg", "coco_500x333_444.jpg"]
+    blobs = [_bytes(n) for n in names]
+    tiffs = [codec.parse_tiff(b) for b in blobs if codec.image_kind(b) == "tiff"]
+    steps = codec.jpeg_batch([codec.parse_jpeg(b) for b in blobs[-2:]] + codec.tiff_jpeg_chunks(tiffs)).steps
+    before = (cuda_image.idct_color.launches, cuda_image.entropy_decode.launches)
+    images = codec.decode_images(blobs, cuda_device)
+    assert (cuda_image.idct_color.launches, cuda_image.entropy_decode.launches) == (before[0] + 1, before[1] + steps)
+    for name, img in zip(names, images):
+        assert sha(img.cpu().numpy()) == DIGESTS[name]["rgb_sha256"], name
+
+
+@pytest.mark.parametrize("mode,dtype", [("linear", torch.uint8), ("linear", torch.float32), ("area", torch.uint8)],
+                         ids=str)
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_resize_batch_equals_plain_in_one_launch(cuda_device, mode, dtype, channels):
+    """resize_batch of images of mixed shapes (both scale directions for linear, whole and
+    fractional factors for area) in one launch, each output equal to the plain version's;
+    outputs misaligned for the wide stores (odd widths) included."""
+    pairs = ([((480, 640), (300, 300)), ((7, 9), (20, 17)), ((333, 500), (300, 301)), ((1, 9), (5, 5)),
+              ((612, 612), (300, 300))] if mode == "linear" else
+             [((960, 1280), (480, 640)), ((1000, 700), (640, 448)), ((37, 53), (20, 17)), ((90, 120), (30, 40))])
+    rng = np.random.default_rng(channels)
+    images = [torch.from_numpy(rng.integers(0, 256, src + (channels,), dtype=np.uint8)) for src, _ in pairs]
+    if dtype == torch.float32:
+        images = [i.float() / 255 for i in images]
+    sizes = [dst for _, dst in pairs]
+    before = cuda_image.resize.launches
+    got = cuda_image.resize_batch([i.to(cuda_device) for i in images], sizes, mode)
+    assert cuda_image.resize.launches == before + 1
+    for img, size, g in zip(images, sizes, got):
+        assert torch.equal(g.cpu(), cuda_image.resize(img, size, mode))

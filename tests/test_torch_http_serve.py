@@ -162,27 +162,36 @@ def test_http_round_trip(service):
 
 @pytest.mark.parametrize("name", ["pam_rgb_37x23.pam", "pam_bits_37x23.pam", "pam_16bit_37x23.pam",
                                   "bigtiff_le_8x6.tif", "bigtiff_be_8x6.tif", "tiff_cv2_37x23.tif",
-                                  "tiff_planar_37x23.tif", "tiff_refused_jpeg_37x23.tif"])
+                                  "tiff_planar_37x23.tif", "tiff_refused_group4_37x23.tif",
+                                  "tiff_jpeg_strips_420_67x45.tif", "tiff_jpeg_pil_ycbcr_37x23.tif",
+                                  "tiff_invalid_lzma_37x23.tif"])
 def test_http_pam_and_tiff_answered_or_refused(service, name):
-    """A PAM, TIFF or BigTIFF body is answered with 200 and the detections the service
-    gives the pixels cv2 decodes from it (the JAX package's decode_image_bytes, which
-    returns detections for it); a JPEG-in-TIFF body, which cv2 reads and the port refuses,
-    gets 415 naming it."""
+    """A PAM, TIFF, JPEG-in-TIFF or BigTIFF body is answered with 200 and the detections
+    the service gives the pixels cv2 decodes from it (the JAX package's
+    decode_image_bytes, which returns detections for it); a CCITT Group 4 body, which cv2
+    reads and the port refuses, gets 415 naming it; an LZMA TIFF, which cv2 returns None
+    for (the JAX service answers 400), gets 400."""
     pytest.importorskip("cv2")
     import os
 
     from ssd_object_detection_tpu.eval.serve import decode_image_bytes as jax_decode
-    from ssd_object_detection_tpu_torch.tools.make_image_fixtures import FIXTURES
+    from ssd_object_detection_tpu_torch.tools.make_image_fixtures import FIXTURES, INVALID, REFUSED
 
     data = open(os.path.join(FIXTURES, name), "rb").read()
     server, thread = _serve(service)
     try:
         host, port = server.server_address
         req = urllib.request.Request(f"http://{host}:{port}/detect", data=data, method="POST")
-        if "refused" in name:
+        if name in REFUSED or name in INVALID:
             with pytest.raises(urllib.error.HTTPError) as e:
                 urllib.request.urlopen(req, timeout=30)
-            assert e.value.code == 415 and "JPEG-in-TIFF" in json.loads(e.value.read())["error"]
+            error = json.loads(e.value.read())["error"]
+            if name in REFUSED:
+                assert e.value.code == 415 and REFUSED[name] in error
+            else:
+                assert e.value.code == 400
+                with pytest.raises(ValueError):
+                    jax_decode(data)
             return
         with urllib.request.urlopen(req, timeout=120) as r:
             assert r.status == 200

@@ -445,8 +445,8 @@ SIGNATURES = {  # a body of each signature one of cv2 5.0's decoders (this build
     "pam": "pam_rgb_37x23.pam", "sunras": "ras_24_37x23.ras", "pfm": "pfm_rgb_37x23.pfm",
     "pfm_gray": "other_gray_8x6.pfm", "hdr_radiance": "hdr_cv2_rle_37x23.hdr", "hdr_rgbe": "hdr_rgbe_header_9x6.hdr",
     "bigtiff_le": "bigtiff_le_8x6.tif", "bigtiff_be": "bigtiff_be_8x6.tif", "avif": "other_8x6.avif",
-    "tiff_le": "tiff_cv2_37x23.tif", "tiff_be": "tiff_be_16bit_37x23.tif", "tiff_jpeg": "tiff_refused_jpeg_37x23.tif",
-    "avif_compatible": "other_mif1_8x6.avif",
+    "tiff_le": "tiff_cv2_37x23.tif", "tiff_be": "tiff_be_16bit_37x23.tif", "tiff_jpeg": "tiff_jpeg_pil_rgb_37x23.tif",
+    "tiff_group4": "tiff_refused_group4_37x23.tif", "avif_compatible": "other_mif1_8x6.avif",
 }
 ENCODED = {"tiff": ".tiff", "webp": ".webp", "jp2": ".jp2", "j2k": ".jp2"}  # cv2's encoders write these
 
@@ -946,3 +946,164 @@ def test_random_tiffs_as_cv2(seed):
             continue
         assert want is not None, i
         np.testing.assert_array_equal(got, want, err_msg=str(i))
+
+
+# ---------------------------------------------------------------------------- TIFF compressions
+COMPRESSIONS = json.load(open(fx.COMPRESSION_TABLE))["bases"]
+CODES = range(65536)
+
+
+def _classes(entry: dict) -> dict:
+    """code -> what cv2 makes of the base at that compression (tiff_compressions.json):
+    "none", "zero", "decodes", or "lacks" (a libtiff codec the port lacks)."""
+    out = {}
+    for cls in ("none", "zero", "decodes"):
+        for lo, hi in entry[cls]:
+            out.update(dict.fromkeys(range(lo, hi + 1), cls))
+    out.update(dict.fromkeys(entry["lacks"], "lacks"))
+    return out
+
+
+def _listed(entry: dict) -> set:
+    """The codes the table names: libtiff's codecs, the port's, the codes of formats no
+    codec claims, and the ends of every range."""
+    ends = {c for cls in ("none", "zero", "decodes") for r in entry[cls] for c in r}
+    return ends | set(fx.LIBTIFF_CODECS) | set(codec._TIFF_UNCLAIMED) | set(entry["lacks"])
+
+
+def _bits_photometric(data: bytes):
+    order, big, tags = codec._tiff_directory(data)
+    return (codec._tiff_values(data, order, big, tags[258])[0], codec._tiff_values(data, order, big, tags[262])[0])
+
+
+@pytest.mark.parametrize("base", sorted(COMPRESSIONS))
+def test_tiff_compression_table_as_cv2(base):
+    """Each base of the committed probe at every code the table lists and 24 seeded codes
+    of the rest: ValueError where cv2 returns None, UnsupportedImage naming the codec
+    where cv2's libtiff decodes and the port lacks the codec, else cv2's pixels (the zero
+    samples' image, palette and MinIsWhite included, or the code's own digest); a file read
+    of an uncompressed tiled TIFF, which cv2.imread reads where cv2.imdecode returns None,
+    is refused by codec.check_file_read."""
+    entry, data = COMPRESSIONS[base], fx.compression_bases()[base]
+    classes = _classes(entry)
+    rng = np.random.default_rng(1900 + sorted(COMPRESSIONS).index(base))
+    for code in sorted(_listed(entry) | set(rng.integers(0, 65536, 24).tolist())):
+        tiff = fx.set_tags(data, {259: code})
+        cls = classes[code]
+        if cls == "lacks":
+            with pytest.raises(codec.UnsupportedImage, match=fx.LIBTIFF_CODECS[code].split()[0]):
+                codec.decode_image(tiff, "cpu")
+        elif cls == "none":
+            with pytest.raises(ValueError):
+                codec.decode_image(tiff, "cpu")
+        else:
+            got = codec.decode_image(tiff, "cpu").numpy()
+            assert fx.sha(got) == (entry["zero_sha256"] if cls == "zero" else entry["decoded_sha256"][str(code)]), code
+        if entry["imread_differs"].get(str(code)) == "decodes":
+            with pytest.raises(codec.UnsupportedImage, match="uncompressed tiled"):
+                codec.check_file_read(tiff)
+        else:
+            codec.check_file_read(tiff)
+
+
+@pytest.mark.parametrize("base", sorted(COMPRESSIONS))
+def test_tiff_compression_rule_is_the_table(base):
+    """codec.tiff_compression_outcome at all 65,536 codes of each base agrees with the
+    probe: "none", "lacks" and "zero" exactly; this decoder's own codecs are the previous
+    test's (on the bases' bytes they decode, decode nothing, or fail as cv2 does)."""
+    entry, data = COMPRESSIONS[base], fx.compression_bases()[base]
+    classes = _classes(entry)
+    bits, photometric = _bits_photometric(data)
+    for code in CODES:
+        got = codec.tiff_compression_outcome(code, bits, photometric)[0]
+        if got != "decode":
+            assert got == classes[code], (code, got, classes[code])
+        else:
+            assert code in fx.PORT_CODECS
+
+
+@pytest.mark.parametrize("base", sorted(COMPRESSIONS))
+def test_tiff_compression_table_is_this_cv2s(base):
+    """The committed probe is this cv2's: cv2.imdecode of each base at the listed codes and
+    48 seeded others gives the table's class and digest."""
+    entry, data = COMPRESSIONS[base], fx.compression_bases()[base]
+    classes = _classes(entry)
+    rng = np.random.default_rng(2000 + sorted(COMPRESSIONS).index(base))
+    for code in sorted(_listed(entry) | set(rng.integers(0, 65536, 48).tolist())):
+        got = _cv2(fx.set_tags(data, {259: code}))
+        cls = classes[code]
+        if got is None:
+            assert cls == "none", code
+        elif fx.sha(got) == entry["zero_sha256"]:
+            assert cls in ("zero", "lacks"), code
+        else:
+            assert cls in ("decodes", "lacks") and entry["decoded_sha256"][str(code)] == fx.sha(got), code
+
+
+def test_tiff_compression_names():
+    """The codes cv2 returns None for, reads as zero samples, or reads with a codec the
+    port lacks are named as libtiff names them (32908 is PixarFilm; PixarLog is 32909)."""
+    assert codec.tiff_compression_outcome(32908, 8, 2) == ("zero", "PixarFilm")
+    assert codec.tiff_compression_outcome(32909, 8, 2) == ("none", "PixarLog")
+    assert codec.tiff_compression_outcome(34925, 8, 2) == ("none", "LZMA")
+    assert codec.tiff_compression_outcome(4, 1, 0) == ("lacks", "CCITT Group 4")
+    assert codec.tiff_compression_outcome(4, 8, 1) == ("none", "CCITT Group 4")
+    assert codec.tiff_compression_outcome(32809, 4, 3) == ("lacks", "ThunderScan")
+    assert codec.tiff_compression_outcome(34677, 16, codec.TIFF_LOGL)[0] == "none"
+    assert codec.tiff_compression_outcome(12345, 8, 2) == ("zero", "compression 12345")
+
+
+JPEG_TIFFS = sorted(n for n in TIFFS if n.startswith("tiff_jpeg_"))
+
+
+@pytest.mark.parametrize("name", JPEG_TIFFS)
+def test_jpeg_in_tiff_fixtures_as_cv2(name):
+    """Every JPEG-in-TIFF fixture (PIL's one-strip RGB, YCbCr and gray; strips at 4:2:0,
+    4:2:2 and 4:4:4, RGB and gray strips, tiles cut at the edges, a restart interval,
+    progressive strips, orientation 6, a cut strip, a last strip encoded taller than its
+    rows, the 640x480 file) equal to cv2, or ValueError where cv2 returns None (a strip of
+    no JPEG, sampling factors libtiff refuses, a component count other than the samples,
+    a JPEG taller than a strip that is not the last)."""
+    data = _bytes(name)
+    want = _cv2(data)
+    if "_invalid_" in name:
+        assert want is None and name in fx.INVALID
+        with pytest.raises(ValueError):
+            codec.decode_image(data, "cpu")
+        return
+    np.testing.assert_array_equal(codec.decode_image(data, "cpu").numpy(), want)
+    tiff = codec.parse_tiff(data)
+    assert all(c.jpeg is not None and c.decoded is None for c in tiff.chunks)
+
+
+def test_jpeg_in_tiff_chunks_join_the_jpeg_batch():
+    """The JPEG chunks of the TIFFs of a batch are images of the batch's one JPEG batch,
+    after its JPEGs: decode_images gives each TIFF and JPEG as cv2 does."""
+    names = ["coco_500x333_444.jpg", "tiff_jpeg_strips_420_67x45.tif", "tiff_jpeg_gray_tiles_67x45.tif",
+             "progressive_420_83x61.jpg", "tiff_cv2_37x23.tif", "tiff_jpeg_rgb_strips_67x45.tif"]
+    blobs = [_bytes(n) for n in names]
+    tiffs = [codec.parse_tiff(b) for b in blobs if codec.image_kind(b) == "tiff"]
+    assert len(codec.tiff_jpeg_chunks(tiffs)) == 3 + 10 + 3  # strips of 16 rows; tiles 16 wide and 32 tall
+    for name, data, got in zip(names, blobs, codec.decode_images(blobs, "cpu")):
+        np.testing.assert_array_equal(got.numpy(), _cv2(data), err_msg=name)
+
+
+def test_uncompressed_tiles_are_none_but_for_four_samples():
+    """cv2.imdecode returns None for an uncompressed tiled TIFF but of 4 samples a pixel
+    (those stay refused, their rule not pinned); cv2.imread of the file reads them all,
+    and the feed's check_file_read refuses them naming the reason."""
+    rng = np.random.default_rng(77)
+    for spp, photometric in ((1, 1), (3, 2), (4, 2)):
+        t = fx.tiff_tags(37, 23, 8, spp, photometric, tile_width=16, tile_length=16, **({"extra": 2} if spp == 4 else {}))
+        del t[278]
+        data = fx.tiff(t, [rng.integers(0, 256, 256 * spp, dtype=np.uint8).tobytes() for _ in range(6)], tiled=True)
+        if spp == 4:
+            assert _cv2(data) is not None
+            with pytest.raises(codec.UnsupportedImage, match="uncompressed tiled"):
+                codec.decode_image(data, "cpu")
+        else:
+            assert _cv2(data) is None
+            with pytest.raises(ValueError):
+                codec.decode_image(data, "cpu")
+        with pytest.raises(codec.UnsupportedImage, match="uncompressed tiled"):
+            codec.check_file_read(data)

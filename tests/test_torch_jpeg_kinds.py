@@ -59,14 +59,15 @@ def test_gif_and_hdr_decode_as_the_jax_package(name):
 
 def _root(path, names, blobs=None):
     """A COCO-format train split of the named fixtures (or of `blobs`, {name: bytes}) under
-    distinct ids, 1-3 boxes each."""
+    distinct ids, 1-3 boxes each (an image cv2 returns None for listed as 64 x 48)."""
     os.makedirs(os.path.join(path, "annotations"))
     os.makedirs(os.path.join(path, "train2017"))
     rng = np.random.default_rng(7)
     images, annotations = [], []
     for i, name in enumerate(names):
         data = (blobs or {}).get(name) or _bytes(name)
-        h, w = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR).shape[:2]
+        image = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        h, w = (48, 64) if image is None else image.shape[:2]
         file_name = f"{9000 + i:012d}.jpg"
         with open(os.path.join(path, "train2017", file_name), "wb") as f:
             f.write(data)
@@ -144,11 +145,13 @@ def test_a_root_holding_a_pam_packs_it(tmp_path, body):
 
 @pytest.mark.parametrize("bodies", [["tiff_cv2_37x23.tif", "tiff_bigtiff_lzw_be_37x23.tif"],
                                     ["tiff_planar_37x23.tif", "tiff_pil_cmyk_deflate_37x23.tif",
-                                     "tiff_orientation3_37x23.tif", "bigtiff_le_8x6.tif"]])
+                                     "tiff_orientation3_37x23.tif", "bigtiff_le_8x6.tif"],
+                                    ["tiff_jpeg_strips_420_67x45.tif", "tiff_jpeg_pil_ycbcr_37x23.tif",
+                                     "tiff_jpeg_gray_tiles_67x45.tif", "tiff_jpeg_cut_67x45.tif"]])
 def test_a_root_holding_tiffs_packs_them(tmp_path, bodies):
-    """TIFF and BigTIFF bodies under .jpg names in a root: the decode feed packs them, the
-    caches byte-equal to the JAX package's (which reads them with cv2.imread). Orientations
-    5-8 are the next test's."""
+    """TIFF, BigTIFF and JPEG-in-TIFF bodies under .jpg names in a root: the decode feed
+    packs them, the caches byte-equal to the JAX package's (which reads them with
+    cv2.imread). Orientations 5-8 are the next test's."""
     root = _root(tmp_path / "root", ["progressive_420_83x61.jpg"] + bodies)
     port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
     packed.pack_dataset(coco.open_split(root, "train"), port_dir, image_size=48, max_gt=4, num_workers=2,
@@ -194,13 +197,13 @@ def test_a_root_holding_turned_tiffs_packs_as_cv2_imread(tmp_path, orientation):
                for f in os.listdir(os.path.join(root, "train2017"))) == len(turned)
 
 
-@pytest.mark.parametrize("body", ["tiff_refused_jpeg_37x23.tif", "tiff_refused_group4_37x23.tif",
+@pytest.mark.parametrize("body", ["tiff_refused_ycbcr_37x23.tif", "tiff_refused_group4_37x23.tif",
                                   "other_mif1_8x6.avif", "pam_rgb_alpha_37x23.pam"])
 def test_a_refused_tiff_avif_or_alpha_pam_in_a_root_raises_naming_the_file(tmp_path, body):
-    """A JPEG-in-TIFF, a CCITT Group 4 TIFF, an AVIF whose major brand is `mif1`, or a PAM
-    with alpha under a .jpg name: cv2 reads each (the JAX package packs it), the port
-    refuses it, and the feed raises UnsupportedImage naming the file rather than
-    skipping it."""
+    """An uncompressed YCbCr TIFF, a CCITT Group 4 TIFF, an AVIF whose major brand is
+    `mif1`, or a PAM with alpha under a .jpg name: cv2 reads each (the JAX package packs
+    it), the port refuses it, and the feed raises UnsupportedImage naming the file rather
+    than skipping it."""
     root = _root(tmp_path / "root", ["progressive_420_83x61.jpg", "cmyk_83x61.jpg"])
     victim = os.path.join(root, "train2017", f"{9001:012d}.jpg")
     shutil.copy(os.path.join(FIXTURES, body), victim)
@@ -211,3 +214,35 @@ def test_a_refused_tiff_avif_or_alpha_pam_in_a_root_raises_naming_the_file(tmp_p
     jax_dir = str(tmp_path / "jax")
     jax_packed.pack_dataset(jax_coco.open_split(root, "train"), jax_dir, image_size=48, max_gt=4, num_workers=2)
     assert json.load(open(os.path.join(jax_dir, "meta.json")))["count"] == 2
+
+
+@pytest.mark.parametrize("body", ["tiff_invalid_lzma_37x23.tif", "tiff_jpeg_invalid_garbage_67x45.tif"])
+def test_a_root_holding_a_tiff_cv2_returns_none_for_skips_it(tmp_path, body):
+    """An LZMA TIFF (a codec cv2's libtiff lacks) or a JPEG-in-TIFF with a strip of no
+    JPEG under a .jpg name: cv2.imread returns None, so the JAX feed skips it, and the
+    port's feed skips it too (ValueError, not UnsupportedImage): the caches are
+    byte-equal, the TIFF not counted; decode_image_bytes raises ValueError as the JAX
+    package's does."""
+    root = _root(tmp_path / "root", ["progressive_420_83x61.jpg", "cmyk_83x61.jpg", body])
+    port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
+    packed.pack_dataset(coco.open_split(root, "train"), port_dir, image_size=48, max_gt=4, num_workers=2,
+                        device="cpu")
+    jax_packed.pack_dataset(jax_coco.open_split(root, "train"), jax_dir, image_size=48, max_gt=4, num_workers=2)
+    assert json.load(open(os.path.join(port_dir, "meta.json")))["count"] == 2
+    for name in ("images.u8", "gt.npz"):
+        with open(os.path.join(port_dir, name), "rb") as a, open(os.path.join(jax_dir, name), "rb") as b:
+            assert a.read() == b.read(), name
+    with pytest.raises(ValueError):
+        decode_image_bytes(_bytes(body), "cpu")
+    with pytest.raises(ValueError):
+        jax_decode(_bytes(body))
+
+
+@pytest.mark.parametrize("name", ["tiff_jpeg_strips_422_67x45.tif", "tiff_jpeg_orientation6_67x45.tif",
+                                  "tiff_jpeg_pil_l_37x23.tif", "tiff_jpeg_tall_last_67x46.tif"])
+def test_jpeg_in_tiff_decodes_as_the_jax_package(name):
+    """JPEG-in-TIFF bodies through the port's decode_image_bytes (K1 and the fused K2 + K3's
+    plain versions for the chunks, K10 and K8's for the placement) against the JAX
+    package's, which reads them with cv2."""
+    got = decode_image_bytes(_bytes(name), "cpu")
+    np.testing.assert_array_equal(got, jax_decode(_bytes(name)))

@@ -137,7 +137,7 @@ def test_artifact_service_rejects_other_blobs(tiny_pair):
 
 def test_decode_image_bytes_without_cv2_names_it(tmp_path):
     """With cv2 blocked (and JAX), `decode_image_bytes` on the CPU gives JAX's
-    `decode_image_bytes` (cv2.imdecode) pixels on every committed fixture, `_fit_canvas`
+    `decode_image_bytes` (cv2.imdecode) pixels on every committed fixture, `fit_to_canvas`
     gives cv2's INTER_AREA fit of the one over the canvas, progressive, CMYK, YCCK,
     4:1:0, smoothed and corrupt JPEGs, GIF, HDR, BMP, PxM, Sun raster and PFM among them,
     the fixtures still refused (AVIF, a 1-channel PFM) raise UnsupportedImage naming what
@@ -170,8 +170,7 @@ def test_decode_image_bytes_without_cv2_names_it(tmp_path):
         "    except ValueError:\n"
         "        assert name in invalid, name\n"
         "        failed.append(name)\n"
-        "svc = type('S', (), {'_canvas_hw': (640, 640), 'device': 'cpu'})()\n"
-        "got['fit'] = serve.DetectorService._fit_canvas(svc, got['coco_641x479_q75_opt.jpg'])\n"
+        "got['fit'] = serve.fit_to_canvas([got['coco_641x479_q75_opt.jpg']], (640, 640), 'cpu')[0]\n"
         "got['refused'] = np.array(refused)\n"
         "got['failed'] = np.array(failed)\n"
         f"np.savez({str(out)!r}, **got)\n"
