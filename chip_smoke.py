@@ -165,9 +165,12 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      of every JPEG fixture, K4 (uint8 and float32 linear, area; every fixture's 300x300
      resize also through resize_batch, a launch a 128 images), K5 (every PNG fixture
      alone and all in one call), K9 (every GIF fixture and every TIFF fixture's LZW chunks
-     in one launch, status and output), K10 (every TIFF fixture's chunks in one launch)
-     and K8 bit-equal to theirs; the fixtures the port still refuses (AVIF by either
-     brand, CCITT Group 4, uncompressed YCbCr, PAMs with alpha, a 1-channel PFM) refused, those cv2
+     in one launch, status and output), K10 (every TIFF chunk with a predictor or a swap,
+     in place, in one launch) and K8 (every GIF, TIFF and raw fixture in one launch, YCbCr
+     and CIELab TIFFs and JPEG-in-TIFFs of 2 and 4 samples and of separate planes among
+     them) bit-equal to theirs; the fixtures the port still refuses (AVIF by either
+     brand, CCITT Group 4, YCbCr of 4 x 4 units that are no whole number of scanlines,
+     PAMs with alpha, a 1-channel PFM) refused, those cv2
      returns None for and a JPEG cut with no marker after the cut ValueErrors; then each
      kernel at the main path's
      shapes (32 copies of the 640x480 4:2:0 JPEG for K1 and K2 + K3, K1 on one copy and
@@ -177,7 +180,9 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      on 32 copies of that JPEG cut in its fifth scan, the 300x300 resize (also from a
      CUDA graph, its host time, 32 in one launch; float32 and INTER_AREA beside
      F.interpolate's bilinear and area), a 640x480 PNG
-     and 32 of them in one call, a 640x480 BMP for K8, a 640x480 GIF written here with
+     and 32 of them in one call, a 640x480 BMP for K8 (and 32 in one launch, one and 32
+     of cv2's 640x480 LZW TIFF after K9 and K10, each also from a CUDA graph, with the
+     wrapper's host time), a 640x480 GIF written here with
      the fixture tool's LZW encoder and 32 of them in one launch for K9, with K9's
      windows, segments, codes, ns a code and time by phase from its clock64 counters,
      held to the CPU model's counts, and the solid-colour 640x480 fixture; K9's TIFF
@@ -235,8 +240,8 @@ Run from the root of a checkout: `python3 chip_smoke.py` (one card, no arguments
      POSTed and answered as DetectorService.detect_images answers the decoder's pixels,
      which equal cv2's digests (progressive, CMYK, YCCK, 4:1:1, corrupt and smoothed
      JPEG bodies, GIF, TIFF, HDR, BMP, PxM, PAM, Sun raster and PFM bodies among them);
-     the refused fixtures (AVIF by either brand, CCITT Group 4, uncompressed YCbCr, PAMs with
-     alpha, a 1-channel PFM)
+     the refused fixtures (AVIF by either brand, CCITT Group 4, YCbCr of 4 x 4 units that
+     are no whole number of scanlines, PAMs with alpha, a 1-channel PFM)
      415, those cv2 returns None for and bytes that are no image 400; 32 clients x 4
      posts of the 640x480 JPEG (img/s, p50, p99);
   8. the evaluation gates, three `python -m ssd_object_detection_tpu_torch.cli.eval_synthetic`
@@ -2097,14 +2102,66 @@ def decode_stages_ms(torch, dev, codec, cuda_image, blobs, repeats: int = 7) -> 
 
 def decode_tiff(codec, cuda_image, tif, device):
     """One parsed TIFF through the kernels on `device`: its JPEG chunks (if any) through K1
-    (K6, K7) and the fused K2 + K3 in one batch, then K9, K10 and K8."""
+    (K6, K7) and the fused K2 + K3 in one batch, then K9, K10 (each where it needs them)
+    and K8."""
     chunks = codec.tiff_jpeg_chunks([tif])
     pixels = None
     if chunks:
         batch = codec.jpeg_batch(chunks)
         batch = batch.to(device) if device.type == "cuda" else batch
         pixels = cuda_image.idct_color(cuda_image.decode_entropy(batch)[0], batch)
-    return cuda_image.decode_lzw_batch([], [tif], device, pixels)[0]
+    return cuda_image.decode_raw_batch([], [tif], [], device, pixels)[0]
+
+
+def expand_report(torch, cuda_image, card: str, ms: float, b2b: float, bound: float, bmp1, bmp32, tif1, tif1_h,
+                  tif32, k10_bytes: int, bmp_bytes: int) -> str:
+    """K8 (and K10) at the decode feed's shapes, each a decode call's launches from inputs
+    on the card (a batch, its buffer after K9, K9's status): one 640x480 24-bit BMP, 32 of
+    them in one call, cv2's 640x480 LZW TIFF after K9 (K10 in place, then K8) and 32 of
+    those; per call, back to back, from a CUDA graph (the card alone) and the wrappers'
+    host time, each against its byte bound; the 32-image outputs held to the one-image
+    plain ones. The TIFF calls undo the predictor again at every call, in copies of the
+    buffers: the same work."""
+    tif1, tif32 = (tif1[0], tif1[1].clone(), tif1[2]), (tif32[0], tif32[1].clone(), tif32[2])
+    def tiff_call(inputs):
+        batch, buf, status = inputs
+
+        def call():
+            cuda_image.tiff_assemble(buf, batch, status)
+            return cuda_image.raw_expand(buf, batch)
+        return call
+
+    def bmp_call(inputs):
+        return lambda: cuda_image.raw_expand(inputs[1], inputs[0])
+
+    want_bmp = cuda_image.raw_expand(bmp1[1], bmp1[0]).cpu()
+    got = cuda_image.raw_expand(bmp32[1], bmp32[0]).cpu()
+    step = bmp32[0].out[1][0]
+    if not all(torch.equal(got[i * step:i * step + want_bmp.numel()], want_bmp) for i in (0, 31)):
+        fail("raw_expand: 32 BMPs in one launch differ from the one-BMP output")
+    want_tif = tiff_call((tif1_h[0], tif1_h[1].clone(), tif1_h[2]))()  # K10 then K8, the plain versions
+    for label, inputs in (("one", tif1), ("32", tif32)):
+        batch, buf, status = inputs
+        fresh = cuda_image.upload(batch, buf.device)
+        fresh[batch.lzw_at:] = buf[batch.lzw_at:]  # K9's output, not yet predicted
+        got = tiff_call((batch, fresh, status))().cpu()
+        if not all(torch.equal(got[at:at + want_tif.numel()], want_tif) for at, _, _ in batch.out[:1] + batch.out[-1:]):
+            fail(f"K10 + K8 on {label} 640x480 LZW TIFF after K9 differ from the plain versions")
+    floor = torch.zeros(1, dtype=torch.uint8, device=bmp1[1].device)
+    lines = []
+    tif_bound = (k10_bytes + 640 * 480 * 3 * 2) / HBM_BYTES_PER_S * 1e3  # K10's rows in and out, K8's samples in, RGB out
+    for label, call, n, one_bound in (("one BMP", bmp_call(bmp1), 1, bound), ("32 BMPs", bmp_call(bmp32), 32, bound),
+                                      ("one TIFF (K10 + K8)", tiff_call(tif1), 1, tif_bound),
+                                      ("32 TIFFs (K10 + K8)", tiff_call(tif32), 32, tif_bound)):
+        g = graph_ms(torch, call)
+        host = enqueue_us(torch, call)
+        per = ms if n == 1 and "BMP" in label else cuda_ms(torch, call, warmup=2, iters=10)
+        back = b2b if n == 1 and "BMP" in label else stream_ms(torch, call, warmup=1, iters=10)
+        lines.append(f"{label} {per:.4f} ms a call, {back:.4f} back to back, {g:.4f} from a CUDA graph (bound "
+                     f"{n * one_bound:.6f} ms, {n * one_bound / g * 100:.2f} % of it), host {host:.1f} us")
+    lines.append(f"the launch floor (a graph node adding 1 to one byte) {graph_ms(torch, lambda: floor.add_(1)):.4f} ms")
+    return ("; K8 and K10 at the decode feed's shapes [" + card + "]: " + "; ".join(lines)
+            + f" ({bmp_bytes} bytes of BMP rows an image; timed outputs equal the plain versions')")
 
 
 def resize_report(torch, np, cuda_image, dev, one, ms: float, b2b: float, bound: float, plain_ms: float) -> tuple:
@@ -2292,8 +2349,8 @@ def image_phase(torch, np, dev, card: str) -> dict:
             png_err = max(png_err, int((got.int() - want.int()).abs().max()))
         if n.endswith(".gif"):
             gif = codec.parse_gif(blobs[n])
-            got = cuda_image.decode_lzw_batch([gif], [], dev)[0].cpu()
-            want = cuda_image.decode_lzw_batch([gif], [], cpu)[0]
+            got = cuda_image.decode_raw_batch([gif], [], [], dev)[0].cpu()
+            want = cuda_image.decode_raw_batch([gif], [], [], cpu)[0]
             if not torch.equal(got, want):
                 fail(f"{n}: the GIF kernels (K9, K8) differ from their plain versions")
             raw_err = max(raw_err, int((got.int() - want.int()).abs().max()))
@@ -2332,15 +2389,16 @@ def image_phase(torch, np, dev, card: str) -> dict:
                 gifs.append(codec.parse_gif(open(os.path.join(fixtures, n), "rb").read()))
             except ValueError:  # refused before its LZW data is read
                 pass
-    # every GIF fixture and every TIFF fixture's LZW chunks in one K9 launch, then the TIFFs' chunks in one K10
+    # every GIF fixture and every TIFF fixture's LZW chunks in one K9 launch, every TIFF chunk with a
+    # predictor or a swap in one K10 launch, then every GIF, TIFF and raw fixture in one K8 launch
     tiffs = [codec.parse_tiff(blobs[n]) for n in names if n.endswith(".tif")]
-    tiff_host = codec.tiff_batch(tiffs)
-    gif_host = codec.gif_batch(gifs, tiff_host)
-    lzw_out = torch.zeros(gif_host.total_indices, dtype=torch.uint8)
-    lzw_out[gif_host.frame_indices:] = tiff_host.decoded
-    lzw_out_dev = lzw_out.to(dev)
-    indices, gif_status = cuda_image.lzw_decode(gif_host.to(dev), out=lzw_out_dev)
-    want_indices, want_status = cuda_image.lzw_decode(gif_host, out=lzw_out)
+    raw_names = [n for n in names if not n.endswith((".jpg", ".png", ".gif", ".tif"))]
+    raw_batch = codec.raw_batch(gifs, tiffs, [codec.parse_raw(blobs[n], codec.image_kind(blobs[n]))
+                                             for n in raw_names])
+    gif_host = raw_batch.lzw
+    buf, want_buf = cuda_image.upload(raw_batch, dev), cuda_image.upload(raw_batch, cpu)
+    indices, gif_status = cuda_image.lzw_decode(gif_host.to(dev), out=buf[raw_batch.lzw_at:])
+    want_indices, want_status = cuda_image.lzw_decode(gif_host, out=want_buf[raw_batch.lzw_at:])
     if not torch.equal(gif_status.cpu(), want_status):
         fail(f"the LZW kernel's status on the GIF fixtures and TIFF LZW chunks {gif_status.cpu().tolist()} differs "
              f"from its plain version's {want_status.tolist()}")
@@ -2359,13 +2417,27 @@ def image_phase(torch, np, dev, card: str) -> dict:
         fail("the LZW kernel's TIFF flavour on the TIFF fixtures' LZW chunks differs from its plain version")
     lzw_err = max(lzw_err, max_diff(indices[tiff_region], want_indices[tiff_region]))
     tiff_status = want_status[len(gifs):]
-    assembled = cuda_image.tiff_assemble(indices[tiff_region], tiff_host.chunks.to(dev), gif_status[len(gifs):],
-                                         tiff_host.image_bytes)
-    want_assembled = cuda_image.tiff_assemble(want_indices[tiff_region], tiff_host.chunks, tiff_status,
-                                              tiff_host.image_bytes)
-    if not torch.equal(assembled.cpu(), want_assembled):
-        fail("the TIFF assembly kernel on every TIFF fixture's chunks in one launch differs from its plain version")
-    err["tiff_assemble"] = float(max_diff(assembled, want_assembled))
+    launched = (cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches)
+    cuda_image.tiff_assemble(buf, raw_batch, gif_status)
+    cuda_image.tiff_assemble(want_buf, raw_batch, want_status)
+    chunk_bytes = [slice(0, raw_batch.host.size), slice(raw_batch.lzw_at + gif_host.frame_indices, raw_batch.total)]
+    if not all(torch.equal(buf[r].cpu(), want_buf[r]) for r in chunk_bytes):  # the host's bytes and K9's TIFF chunks
+        fail("the TIFF predictor kernel on every TIFF fixture's chunks in one launch differs from its plain version")
+    err["tiff_assemble"] = float(max(max_diff(buf[r], want_buf[r]) for r in chunk_bytes))
+    chunk_jpegs = codec.jpeg_batch(codec.tiff_jpeg_chunks(tiffs))
+    chunk_dev = chunk_jpegs.to(dev)
+    chunk_pixels = cuda_image.idct_color(cuda_image.decode_entropy(chunk_dev)[0], chunk_dev)
+    expanded = cuda_image.raw_expand(buf, raw_batch, chunk_pixels)
+    want_expanded = cuda_image.raw_expand(want_buf, raw_batch, chunk_pixels.cpu())
+    if (cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches) != (launched[0] + 1, launched[1] + 1):
+        fail("K10 and K8 over every GIF, TIFF and raw fixture: not one launch each")
+    spans = [slice(at, at + h * w * 3) for i, (at, h, w) in enumerate(raw_batch.out)  # each image's RGB (padding
+             if i >= len(gifs) or want_status[i] == codec.GIF_OK]  # between; a failed GIF frame's indices unspecified)
+    if not all(torch.equal(expanded[r].cpu(), want_expanded[r]) for r in spans):
+        fail("the raw image kernel on every GIF, TIFF and raw fixture in one launch differs from its plain version")
+    raw_err = max([raw_err] + [max_diff(expanded[r], want_expanded[r]) for r in spans])
+    if batch_launches["raw_expand"] != 1 or batch_launches["tiff_assemble"] != 1 or batch_launches["lzw_decode"] != 1:
+        fail(f"every fixture in one decode_images call: launches {batch_launches}, expected one K9, one K10 and one K8")
     err["png_unfilter_expand"] = float(png_err)
     err["raw_expand"] = float(raw_err)
     err["lzw_decode"] = float(lzw_err)
@@ -2396,9 +2468,11 @@ def image_phase(torch, np, dev, card: str) -> dict:
     gif_statuses = sorted(collections.Counter(want_status[:len(gifs)].tolist()).items())
     print(f"image kernels: {len(gifs)} GIF fixtures and {len(tiff_status)} LZW chunks of {len(tiffs)} TIFF fixtures "
           f"through K9 in one launch (GIF statuses {gif_statuses}, TIFF chunk statuses "
-          f"{sorted(collections.Counter(tiff_status.tolist()).items())}), the TIFFs' "
-          f"{tiff_host.chunks.shape[0]} chunks through K10 in one launch, {len(pngs)} PNG fixtures through K5 in one "
-          f"call, {len(record['invalid'])} fixtures cv2 returns None for raising ValueError")
+          f"{sorted(collections.Counter(tiff_status.tolist()).items())}), {raw_batch.works} of the TIFFs' "
+          f"{raw_batch.chunks.shape[0]} chunks ({raw_batch.k10_rows} rows) through K10 in one launch, "
+          f"{raw_batch.images} GIF, TIFF and raw fixtures through K8 in one launch ({raw_batch.tiles} CTAs), "
+          f"{len(pngs)} PNG fixtures through K5 in one call, {len(record['invalid'])} fixtures cv2 returns None for "
+          f"raising ValueError")
     print(f"image kernels: {len(names)} fixtures ({len(jpegs)} JPEGs in one batch, {kinds} of them progressive, "
           f"CMYK, YCCK or sampled 4:1:1 to 4x1 over 2x1, {corrupt} corrupt or smoothed ({warnings} libjpeg "
           f"warnings counted), {seams} seams: widths and heights 1-33, restart intervals of 1 MCU and past the "
@@ -2446,19 +2520,24 @@ def image_phase(torch, np, dev, card: str) -> dict:
     gif1, gif32 = gif1_host.to(dev), gif32_host.to(dev)
     bmp_blob = fx.bmp(rgb16[..., ::-1], 24)  # the same pixels as a 640x480 24-bit BMP, rows bottom-up
     raw = codec.parse_raw(bmp_blob, "bmp")
-    raw_dev = (torch.frombuffer(bytearray(raw.data), dtype=torch.uint8).to(dev), torch.from_numpy(raw.params()).to(dev),
-               torch.from_numpy(raw.palette.copy()).to(dev))
-    raw_host = (torch.frombuffer(bytearray(raw.data), dtype=torch.uint8), torch.from_numpy(raw.params()),
-                torch.from_numpy(raw.palette.copy()))
-    # the 640x480 LZW TIFF (cv2's writer: strips of about 8 KB, the predictor): K9's TIFF flavour, then K10
+    # the 640x480 LZW TIFF (cv2's writer: strips of about 8 KB, the predictor): K9's TIFF flavour, then K10, K8
     tif = codec.parse_tiff(blobs["tiff_cv2_640x480.tif"])
-    tif_host = codec.tiff_batch([tif])
-    tif_lzw_host = codec.gif_batch([], tif_host)
+
+    def expand_inputs(raws, tiffs, device):  # a decode call's batch, its buffer after K9, and K9's status
+        batch = codec.raw_batch([], tiffs, raws)
+        buf = cuda_image.upload(batch, device)
+        status = None
+        if batch.lzw.gifs.shape[0]:
+            status = cuda_image.lzw_decode(batch.lzw.to(device) if device.type == "cuda" else batch.lzw,
+                                           out=buf[batch.lzw_at:])[1]
+        return batch, buf, status
+
+    bmp1, bmp1_h, bmp32 = expand_inputs([raw], [], dev), expand_inputs([raw], [], cpu), expand_inputs([raw] * 32, [], dev)
+    tif1, tif1_h, tif32 = expand_inputs([], [tif], dev), expand_inputs([], [tif], cpu), expand_inputs([], [tif] * 32, dev)
+    tif_timed = tif1[1].clone()
+    tif_lzw_host = tif1[0].lzw
     tif_lzw = tif_lzw_host.to(dev)
     tif_zero = torch.zeros(tif_lzw_host.total_indices, dtype=torch.uint8, device=dev)
-    tif_chunks = tif_host.chunks.to(dev)
-    tif_decoded, tif_status = cuda_image.lzw_decode(tif_lzw, out=tif_zero.clone())
-    tif_decoded_h, tif_status_h = cuda_image.lzw_decode(tif_lzw_host, out=tif_zero.cpu())
     # K6 and K7 from the coefficients the kernels before them leave
     prog_first = cuda_image.entropy_decode(prog_dev)
     prog_first_host = cuda_image.entropy_decode(prog_host)
@@ -2478,13 +2557,13 @@ def image_phase(torch, np, dev, card: str) -> dict:
         "png_unfilter_expand": lambda: cuda_image.png_decode(png1),
         "progressive_entropy": lambda: cuda_image.progressive_entropy(prog_dev, fresh(prog_first)),
         "block_smooth": lambda: cuda_image.block_smooth(smooth_dev, fresh(smooth_in)[0], smooth_in[2]),
-        "raw_expand": lambda: cuda_image.raw_expand(raw_dev[0], raw_dev[1], raw_dev[2], raw.scale, (480, 640)),
+        "raw_expand": lambda: cuda_image.raw_expand(bmp1[1], bmp1[0]),
         "lzw_decode": lambda: cuda_image.lzw_decode(gif1),
-        "tiff_assemble": lambda: cuda_image.tiff_assemble(tif_decoded.clone(), tif_chunks, tif_status,
-                                                          tif_host.image_bytes),
+        # in place, again at every call on a copy kept for the timing: the same work
+        "tiff_assemble": lambda: cuda_image.tiff_assemble(tif_timed, tif1[0], tif1[2]),
     }
-    clone_ms = {"progressive_entropy": lambda: fresh(prog_first), "block_smooth": lambda: fresh(smooth_in)[0],
-                "tiff_assemble": lambda: tif_decoded.clone()}
+    fresh_calls = {"tiff_assemble": lambda: cuda_image.tiff_assemble(tif1[1].clone(), tif1[0], tif1[2])}
+    clone_ms = {"progressive_entropy": lambda: fresh(prog_first), "block_smooth": lambda: fresh(smooth_in)[0]}
     coef_h = coef.cpu()
     one_h = one.cpu()
     plain = {
@@ -2494,10 +2573,9 @@ def image_phase(torch, np, dev, card: str) -> dict:
         "png_unfilter_expand": lambda: cuda_image.png_decode(png1_host),
         "progressive_entropy": lambda: cuda_image.progressive_entropy(prog_host, fresh(prog_first_host)),
         "block_smooth": lambda: cuda_image.block_smooth(smooth_host, fresh(smooth_in_host)[0], smooth_in_host[2]),
-        "raw_expand": lambda: cuda_image.raw_expand(raw_host[0], raw_host[1], raw_host[2], raw.scale, (480, 640)),
+        "raw_expand": lambda: cuda_image.raw_expand(bmp1_h[1], bmp1_h[0]),
         "lzw_decode": lambda: cuda_image.lzw_decode(gif1_host),
-        "tiff_assemble": lambda: cuda_image.tiff_assemble(tif_decoded_h.clone(), tif_host.chunks, tif_status_h,
-                                                          tif_host.image_bytes),
+        "tiff_assemble": lambda: cuda_image.tiff_assemble(tif1_h[1].clone(), tif1_h[0], tif1_h[2]),
     }
 
     def equal(got, want) -> bool:  # a kernel's output (tensor or tuple of them) against the plain one
@@ -2518,7 +2596,8 @@ def image_phase(torch, np, dev, card: str) -> dict:
         "block_smooth": cuda_image.bound_bytes("block_smooth", blocks=smooth_host.smooth_blocks),
         "raw_expand": cuda_image.bound_bytes("raw_expand", in_bytes=len(raw.data), pixels=480 * 640),
         "lzw_decode": cuda_image.bound_bytes("lzw", in_bytes=len(gif.lzw), pixels=480 * 640),
-        "tiff_assemble": cuda_image.bound_bytes("tiff_assemble", placed_bytes=tif.nbytes),
+        "tiff_assemble": cuda_image.bound_bytes("tiff_assemble", chunk_bytes=sum(c.placed_rows * c.row_bytes
+                                                                                 for c in tif.chunks)),
     }
     bound_ops = {"jpeg_idct_color": blocks * IDCT_OPS_PER_BLOCK + prep_host.total_pixels * COLOR_OPS_PER_PIXEL}
     shapes = {"jpeg_entropy_decode": f"32 x 640x480 4:2:0 ({entropy_bytes} entropy bytes, {blocks} blocks)",
@@ -2530,8 +2609,8 @@ def image_phase(torch, np, dev, card: str) -> dict:
               "block_smooth": f"32 x 640x480 progressive cut in scan 4 ({smooth_host.smooth_blocks} blocks)",
               "raw_expand": "one 640x480 24-bit BMP",
               "lzw_decode": f"one 640x480 GIF ({len(gif.lzw)} LZW bytes, min code size {gif.min_code_size})",
-              "tiff_assemble": f"cv2's 640x480 LZW TIFF, {len(tif.chunks)} strips of {tif.chunks[0].rows} rows (the "
-                               f"predictor undone, {tif.nbytes} bytes placed)"}
+              "tiff_assemble": f"cv2's 640x480 LZW TIFF after K9, {len(tif.chunks)} strips of {tif.chunks[0].rows} "
+                               f"rows (the predictor undone in place, a warp a row)"}
     out = {}
     for name, fn in calls.items():
         less = cuda_ms(torch, clone_ms[name], warmup=2, iters=10) if name in clone_ms else 0.0
@@ -2540,7 +2619,7 @@ def image_phase(torch, np, dev, card: str) -> dict:
         t = time.perf_counter()
         want = plain[name]()
         plain_ms = (time.perf_counter() - t) * 1e3
-        if not equal(fn(), want):
+        if not equal(fresh_calls.get(name, fn)(), want):
             fail(f"{name}: the kernel at the timed shape differs from its plain version")
         del want
         bound = bound_bytes[name] / HBM_BYTES_PER_S * 1e3
@@ -2632,6 +2711,9 @@ def image_phase(torch, np, dev, card: str) -> dict:
                           f"{max(rounds):.4f}), {some_b2b:.4f} back to back ({some_b2b / some_host.total_pixels * 1e6:.3f}"
                           f" ns a pixel against {b2b / prep_host.total_pixels * 1e6:.3f} at 32 x 4:2:0)")
             extra += "; timed outputs equal the plain version's"
+        if name == "raw_expand":
+            extra = expand_report(torch, cuda_image, card, ms, b2b, bound, bmp1, bmp32, tif1, tif1_h, tif32,
+                                  bound_bytes["tiff_assemble"], len(raw.data))
         if name == "tiff_assemble":
             lzw_tif_ms = cuda_ms(torch, lambda: cuda_image.lzw_decode(tif_lzw, out=tif_zero.clone()), warmup=2,
                                  iters=10) - cuda_ms(torch, lambda: tif_zero.clone(), warmup=2, iters=10)
@@ -2769,7 +2851,8 @@ def scan_kind_report(torch, cuda_image, batch, card: str, label: str) -> dict:
 ROOT_EXTRAS = ("bmp_rle8_37x23.bmp", "pxm_p6_37x23.ppm", "ras_cmap8_37x23.ras", "corrupt_cut_eoi_500x333.jpg",
                "progressive_cut_eoi_83x61.jpg", "gif_cv2_100x80.gif", "hdr_cv2_rle_37x23.hdr",
                "pam_16bit_37x23.pam", "tiff_cv2_640x480.tif", "tiff_planar_37x23.tif",
-               "tiff_bigtiff_lzw_be_37x23.tif", "tiff_pil_cmyk_deflate_37x23.tif", "tiff_jpeg_strips_420_67x45.tif")
+               "tiff_bigtiff_lzw_be_37x23.tif", "tiff_pil_cmyk_deflate_37x23.tif", "tiff_jpeg_strips_420_67x45.tif",
+               "tiff_ycbcr22_lzw_37x23.tif", "tiff_pil_lab_lzw_37x23.tif", "tiff_jpeg_pil_cmyk_37x23.tif")
 # and one the feed skips, as the JAX feed skips what cv2.imread returns None for
 ROOT_SKIPPED = ("tiff_invalid_lzma_37x23.tif",)
 
@@ -2811,7 +2894,8 @@ def jpeg_coco_root(np, root: str, num_images: int = 64) -> dict:
 def jpeg_train_phase(torch, np, dev, card: str, variant: str = "ssd300") -> tuple:
     """4e. A COCO-format root of 64 fixture images under .jpg names (baseline,
     progressive, CMYK and 4:1:1 JPEGs, a BMP, a PPM, a Sun raster, a corrupt JPEG, a
-    smoothed progressive one, a GIF, an HDR, a PAM, four TIFFs and a JPEG-in-TIFF) and an
+    smoothed progressive one, a GIF, an HDR, a PAM, four TIFFs, a YCbCr and a CIELab TIFF,
+    a JPEG-in-TIFF and a CMYK one) and an
     LZMA TIFF (cv2.imread returns None: the feed skips it): cli.train packs it on the card
     (pack_dataset through the decode feed, 8 worker threads, each on its own stream) and
     trains SSD300-VGG16 from the cache at batch 32, bf16, 2 steps; every packed image
@@ -2853,7 +2937,8 @@ def jpeg_train_phase(torch, np, dev, card: str, variant: str = "ssd300") -> tupl
         if matcher != 2 or not math.isfinite(loss):
             fail(f"JPEG train: matcher launches {matcher} (2 steps), loss {loss}")
         # one decode an image: K1 (and K6 a refinement round, K7 where libjpeg smooths) for
-        # a JPEG, K9 then K8 for a GIF, K8 for the others; one resize an image
+        # a JPEG, K9 then K8 for a GIF, K9 for a TIFF with LZW chunks, K10 for one with a
+        # chunk to predict or swap, K8 for every image but a JPEG; one resize an image
         fixtures, _ = fixture_record()
         want = {"jpeg_entropy_decode": 0, "progressive_entropy": 0, "block_smooth": 0, "raw_expand": 0,
                 "lzw_decode": 0, "tiff_assemble": 0, "jpeg_idct_color": 0}
@@ -2865,7 +2950,7 @@ def jpeg_train_phase(torch, np, dev, card: str, variant: str = "ssd300") -> tupl
                 want["raw_expand"] += 1
                 want["lzw_decode"] += kind == "gif" or (kind == "tiff" and any(
                     c.decoded is None and c.jpeg is None for c in codec.parse_tiff(data).chunks))
-                want["tiff_assemble"] += kind == "tiff"
+                want["tiff_assemble"] += kind == "tiff" and codec.raw_batch([], [codec.parse_tiff(data)], []).works > 0
                 if not chunks:
                     continue
             want["jpeg_idct_color"] += 1
@@ -2903,7 +2988,7 @@ def http_phase(torch, np, dev, card: str, variant: str = "ssd300", tiers=(1, 8, 
     DetectorService.detect_images answers the decoder's pixels, those pixels equal to
     cv2's digests (progressive, CMYK, YCCK, 4:1:1, corrupt and smoothed JPEG bodies, GIF,
     TIFF, JPEG-in-TIFF, HDR, BMP, PxM, PAM, Sun raster and PFM bodies among them); the
-    refused bodies (AVIF, CCITT Group 4, uncompressed YCbCr, PAMs with alpha, a 1-channel
+    refused bodies (AVIF, CCITT Group 4, YCbCr of odd 4 x 4 units, PAMs with alpha, a 1-channel
     PFM) 415, those cv2 returns None for (an LZMA TIFF, JPEG-in-TIFFs libtiff cannot start
     among them) and bytes that are no image 400; 32
     concurrent clients posting the 640x480 JPEG. Returns the image kernels' launches."""

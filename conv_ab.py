@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Interleaved A/B of one hand-written kernel across trees, on one GPU.
 
-    python3 conv_ab.py DIR_A DIR_B [DIR ...] [--kernel conv|matcher|host_prep|refine|resize] [--rounds 2]
+    python3 conv_ab.py DIR_A DIR_B [DIR ...] [--kernel conv|matcher|host_prep|refine|resize|raw|tiff] [--rounds 2]
                        [--shapes NAME ...] [--out FILE]
 
 Each DIR holds an `ssd_object_detection_tpu_torch/` package: a checkout of the repo,
@@ -51,6 +51,24 @@ to no bytes) and launch_floor (no resize: one in-place add on a one-byte tensor,
 card's cost of a graph node that does nothing, the same in every tree). The images are
 seeded random bytes.
 
+--kernel raw is K8 (csrc/raw_image.cu) on BMPs, from inputs already on the card: one (a
+640x480 24-bit BMP: the tree's K8 launch for it, `raw_expand` on its uploaded rows, or on
+the call's uploaded buffer where the tree has `raw_batch`), batch32 (32 such BMPs: 32
+launches where the tree launches K8 an image, one where it launches it a call),
+decode_one and decode32 (`codec.decode_images` of the BMPs' bytes, the whole decode
+call with the parse and the upload: per call and host time only, no graph, since an
+upload from pageable memory cannot be captured) and launch_floor (as for resize).
+--kernel tiff is K10 (csrc/tiff_assemble.cu) and K8 on cv2's 640x480 LZW TIFF (120 strips
+of 4 rows with the predictor) after K9, from K9's output on the card: one (where the tree
+places chunks: the zero-filled image buffer, K10, then K8; where it reads them in place:
+K10 in place, then K8) and batch32 (32 copies in one call), checked against the plain
+versions on a fresh copy before the timing (the timed calls undo the predictor again in
+place: the same work), k10_one, k8_one, k10_32 and k8_32 (each of the two alone on one and
+32 TIFFs: K10, with the zero fill where the tree places chunks; K8 on what K10 leaves),
+decode_one and decode32 as for raw, and launch_floor. The BMPs
+are seeded random bytes written by the tree's fixture tool; the TIFF is the fixture of
+the tree that holds this script.
+
 The script prints the card's name and power limit, one line per tree and shape with
 every sample, and writes them all as JSON to FILE. A tree whose process fails (a check,
 a fault) is reported with its error; the others are still timed.
@@ -90,11 +108,17 @@ RESIZE_SHAPES = {"one": (1, (480, 640), (300, 300), "linear", False),
                  "area_one": (1, (960, 1280), (480, 640), "area", False),
                  "tiny_one": (1, (8, 8), (4, 4), "linear", False),
                  "launch_floor": None}
+RAW_SHAPES = {"launch_floor": 0, "one": 1, "batch32": 32, "decode_one": 1, "decode32": 32}
+# and, for TIFFs, each kernel alone: what a tree spends before K8 (K10, and its zero fill where
+# it places chunks) and K8 itself
+TIFF_SHAPES = {**RAW_SHAPES, "k10_one": 1, "k8_one": 1, "k10_32": 32, "k8_32": 32}
+TIFF_FIXTURE = os.path.join(os.path.dirname(HOST_PREP_JPEG), "tiff_cv2_640x480.tif")
 SHAPE_NAMES = {"conv": [s[0] for s in CONV_SHAPES], "matcher": list(MATCHER_SHAPES),
-               "host_prep": list(HOST_PREP_SHAPES), "refine": ["batch32"], "resize": list(RESIZE_SHAPES)}
+               "host_prep": list(HOST_PREP_SHAPES), "refine": ["batch32"], "resize": list(RESIZE_SHAPES),
+               "raw": list(RAW_SHAPES), "tiff": list(TIFF_SHAPES)}
 
 
-def time_call(torch, call) -> dict:
+def time_call(torch, call, graph: bool = True) -> dict:
     """Back-to-back, per-call and host time of `call` (see the module's note)."""
     for _ in range(3):
         call()
@@ -123,7 +147,7 @@ def time_call(torch, call) -> dict:
     torch.cuda.synchronize()
     return {"back_to_back_ms": statistics.median(windows),
             "per_call_ms": statistics.median(calls), "host_us": host_us,
-            "graph_ms": graph_ms(torch, call)}
+            **({"graph_ms": graph_ms(torch, call)} if graph else {})}
 
 
 def child_matcher(tree: str, names) -> None:
@@ -258,6 +282,118 @@ def child_resize(tree: str, names) -> None:
         print(json.dumps({"shape": name, **time_call(torch, call)}), flush=True)
 
 
+def _expand_calls(torch, codec, cuda_image, raws, tiffs, dev):
+    """({"both", "k10", "k8"}: the tree's K10 + K8 launches for parsed raw images and
+    TIFFs whose inputs are on `dev`, and each alone; the plain result of both): the
+    launches of one decode call, K9's output (the TIFFs' LZW chunks) made once
+    beforehand."""
+    cpu = torch.device("cpu")
+    if hasattr(codec, "raw_batch"):  # K8 once a call over the call's buffer; K10 in place where a chunk needs it
+        batch = codec.raw_batch([], tiffs, raws)
+
+        def buffers(device):
+            buf = cuda_image.upload(batch, device)
+            status = None
+            if batch.lzw.gifs.shape[0]:
+                lzw = batch.lzw.to(device) if device.type == "cuda" else batch.lzw
+                status = cuda_image.lzw_decode(lzw, out=buf[batch.lzw_at:])[1]
+            return buf, status
+
+        (buf, status), (buf_h, status_h) = buffers(dev), buffers(cpu)
+
+        def launches(b, st):
+            cuda_image.tiff_assemble(b, batch, st)
+            return cuda_image.raw_expand(b, batch)
+
+        want = launches(buf_h, status_h)
+        return {"both": lambda: launches(buf, status), "k10": lambda: cuda_image.tiff_assemble(buf, batch, status),
+                "k8": lambda: cuda_image.raw_expand(buf, batch)}, want
+    # one K8 launch an image (its rows and params uploaded), the TIFFs placed by one K10 launch first
+    parts = [(torch.frombuffer(bytearray(r.data), dtype=torch.uint8), torch.from_numpy(r.params()),
+              torch.from_numpy(r.palette.copy()), r) for r in raws]
+    tiff = codec.tiff_batch(tiffs) if tiffs else None
+
+    def inputs(device):
+        out = [(d.to(device), p.to(device), q.to(device), r) for d, p, q, r in parts]
+        if tiff is None:
+            return out, None
+        host = codec.gif_batch([], tiff)
+        zero = torch.zeros(host.total_indices, dtype=torch.uint8, device=device)
+        zero.copy_(tiff.decoded.to(device))
+        decoded, status = cuda_image.lzw_decode(host.to(device) if device.type == "cuda" else host, out=zero)
+        chunks = tiff.chunks.to(device)
+        params = [(torch.from_numpy(t.raw().params()).to(device), torch.from_numpy(t.palette.copy()).to(device), t)
+                  for t in tiffs]
+        return out, (decoded, status, chunks, params)
+
+    def launches(ins, tif_ins):
+        out = [cuda_image.raw_expand(d, p, q, r.scale, (r.height, r.width)) for d, p, q, r in ins]
+        if tif_ins is not None:
+            decoded, status, chunks, params = tif_ins
+            images = cuda_image.tiff_assemble(decoded, chunks, status, tiff.image_bytes)
+            out += [cuda_image.raw_expand(images[at:at + t.nbytes], p, q, 1.0, (t.height, t.width))
+                    for at, (p, q, t) in zip(tiff.image_offsets, params)]
+        return out
+
+    ins, tif_ins = inputs(dev)
+    want = launches(*inputs(cpu))
+    calls = {"both": lambda: launches(ins, tif_ins)}
+    if tif_ins is not None:
+        decoded, status, chunks, params = tif_ins
+        placed = cuda_image.tiff_assemble(decoded.clone(), chunks, status, tiff.image_bytes)  # decoded stays fresh
+        calls["k10"] = lambda: cuda_image.tiff_assemble(decoded, chunks, status, tiff.image_bytes)
+        calls["k8"] = lambda: [cuda_image.raw_expand(placed[at:at + t.nbytes], p, q, 1.0, (t.height, t.width))
+                               for at, (p, q, t) in zip(tiff.image_offsets, params)]
+    return calls, want
+
+
+def child_raw(tree: str, names, kind: str = "raw") -> None:
+    """Time one tree's K8 (and, for TIFFs, K10) at the named shapes; one JSON line per
+    shape."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import numpy as np
+    import torch
+
+    from ssd_object_detection_tpu_torch.data import codec
+    from ssd_object_detection_tpu_torch.ops import cuda_image
+    from ssd_object_detection_tpu_torch.tools import make_image_fixtures as fx
+
+    dev = torch.device("cuda")
+    cuda_image.build()
+    if kind == "raw":
+        rng = np.random.default_rng(0)
+        blob = fx.bmp(rng.integers(0, 256, (480, 640, 3)), 24)
+    else:
+        with open(TIFF_FIXTURE, "rb") as f:
+            blob = f.read()
+    for name in names:
+        count = TIFF_SHAPES[name]
+        if count == 0:
+            one = torch.zeros(1, dtype=torch.uint8, device=dev)
+            print(json.dumps({"shape": name, **time_call(torch, lambda: one.add_(1))}), flush=True)
+            continue
+        blobs = [blob] * count
+        if name.startswith("decode"):
+            want = codec.decode_image(blob, "cpu")
+
+            def call():
+                return codec.decode_images(blobs, dev)
+
+            if not all(torch.equal(g.cpu(), want) for g in call()):
+                raise SystemExit(f"{tree} {name}: the decode differs from the plain one")
+            print(json.dumps({"shape": name, **time_call(torch, call, graph=False)}), flush=True)
+            continue
+        parsed = [codec.parse_raw(b, "bmp") if kind == "raw" else codec.parse_tiff(b) for b in blobs]
+        calls, want = _expand_calls(torch, codec, cuda_image, parsed if kind == "raw" else [],
+                                    parsed if kind == "tiff" else [], dev)
+        got = calls["both"]()
+        call = calls[name.split("_")[0] if name.startswith("k") else "both"]
+        got, want = (got, want) if isinstance(want, list) else ([got], [want])
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise SystemExit(f"{tree} {name}: the kernels differ from their plain versions")
+        print(json.dumps({"shape": name, **time_call(torch, call)}), flush=True)
+
+
 def card_line() -> str:
     """nvidia-smi's name and power limit of the card; "none" without nvidia-smi (a
     host_prep run on a machine without a card)."""
@@ -271,7 +407,7 @@ def card_line() -> str:
 
 
 CHILDREN = {"conv": child_conv, "matcher": child_matcher, "host_prep": child_host_prep, "refine": child_refine,
-            "resize": child_resize}
+            "resize": child_resize, "raw": child_raw, "tiff": lambda tree, names: child_raw(tree, names, "tiff")}
 
 
 def main() -> None:

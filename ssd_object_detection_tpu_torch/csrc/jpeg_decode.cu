@@ -16,7 +16,11 @@
 //                      libjpeg-turbo's upsampling (jdsample.c), YCbCr->RGB (jdcolor.c),
 //                      CMYK and YCCK as cv2 converts them, and the Exif orientation, as
 //                      cv2.imdecode gives them: a CTA a tile of MCUs, the component
-//                      planes in shared memory only.
+//                      planes in shared memory only. A JPEG-in-TIFF chunk but YCbCr's
+//                      (colour space 5, data/codec.py SPACE_RAW) leaves its components
+//                      unconverted, a byte each a pixel, as libtiff asks libjpeg for them
+//                      (JCS_UNKNOWN): its tile holds 3 / ncomp of the rows, so that the
+//                      RGB stage holds its 4 bytes a pixel.
 //
 // Replaces no Pallas kernel: the JAX package decodes with cv2 on the host
 // (ssd_object_detection_tpu/data/pipeline.py:70-87, eval/serve.py:374-381). The plain
@@ -642,8 +646,14 @@ __device__ __forceinline__ uint8_t clamp255(int v) {
 
 // RGB of one pixel from its components' samples (jdcolor.c, cv2's CMYK), as
 // ops/plain_image.py::color converts them.
-__device__ void to_rgb(const int* s, int space, uint8_t* o) {
+__device__ void to_rgb(const int* s, int space, int ncomp, uint8_t* o) {
   int r, gr, b;
+  if (space == 5) {  // SPACE_RAW: the components as they are (a JPEG-in-TIFF chunk)
+#pragma unroll
+    for (int c = 0; c < kMaxComps; ++c)
+      if (c < ncomp) o[c] = static_cast<uint8_t>(s[c]);
+    return;
+  }
   if (space == 0) {
     r = gr = b = s[0];
   } else if (space == 2) {
@@ -703,9 +713,11 @@ __global__ void __launch_bounds__(kFusedThreads)
   const int y0 = t[1], x0 = t[2];
   const int h = im[3], w = im[4], orient = im[5], ncomp = im[6], space = im[7];
   const int th = min(t[3], h - y0), tw = min(t[4], w - x0);
+  const int bpp = space == 5 ? ncomp : 3;  // bytes a pixel out (data/codec.py::pixel_bytes)
   const int tid = threadIdx.x;
   if (tid == 0) {  // each component's block rectangle under the tile, with the halo fancy upsampling reads
-    if (t[3] > kTileH || t[4] > kTileW) __trap();  // the RGB stage holds no more (JpegBatch.to refuses it)
+    // the RGB stage holds no more (JpegBatch.to refuses it)
+    if (t[3] > kTileH || t[4] > kTileW || t[3] * t[4] * bpp > kTileH * kTileW * 3) __trap();
     int at = 0, bytes = 0;
     for (int c = 0; c < ncomp; ++c) {
       const int* cp = im + 8 + 8 * c;
@@ -806,7 +818,7 @@ __global__ void __launch_bounds__(kFusedThreads)
           if (2 * r2 + dy < rows && 2 * q2 + dx < cols) {
             const int smp[3] = {static_cast<int>(planes[0].p[(y + dy - planes[0].ly0) * planes[0].ls + x + dx -
                                                              planes[0].lx0]), cb[k], cr[k]};
-            to_rgb(smp, 1, s.rgb + 3 * ((2 * r2 + dy) * cols + 2 * q2 + dx));
+            to_rgb(smp, 1, 3, s.rgb + 3 * ((2 * r2 + dy) * cols + 2 * q2 + dx));
           }
         }
       }
@@ -819,7 +831,7 @@ __global__ void __launch_bounds__(kFusedThreads)
       int smp[kMaxComps];
 #pragma unroll
       for (int c = 0; c < kMaxComps; ++c) smp[c] = c < ncomp ? upsample(planes[c], y, x) : 0;
-      to_rgb(smp, space, s.rgb + 3 * (r * cols + q));
+      to_rgb(smp, space, ncomp, s.rgb + bpp * (r * cols + q));
     }
   }
   }
@@ -827,9 +839,9 @@ __global__ void __launch_bounds__(kFusedThreads)
 
   // each output row of the tile by a warp: 16-byte stores where aligned, bytes at the ends
   const int warp = tid >> 5, lane = tid & 31;
-  const int row_bytes = 3 * cols;
+  const int row_bytes = bpp * cols;
   for (int r = warp; r < rows; r += kFusedThreads / 32) {
-    uint8_t* dst = out + 3 * (static_cast<long long>(im[0]) + static_cast<long long>(oy0 + r) * im[2] + ox0);
+    uint8_t* dst = out + im[0] + bpp * (static_cast<long long>(oy0 + r) * im[2] + ox0);
     const uint8_t* src = s.rgb + r * row_bytes;
     const int head = min(row_bytes, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(dst) & 15)) & 15));
     const int body = (row_bytes - head) & ~15;
@@ -878,7 +890,7 @@ int ssd_jpeg_entropy(const uint8_t* data, long long nbytes, const int* segs, int
 
 // K2 + K3 fused: a CTA a tile (tiles as data/codec.py::jpeg_batch, TILE_INTS rows);
 // coefficients int16 (blocks, 64), qtables (C, 64), images IMG_INTS rows; `out` the
-// batch's RGB.
+// batch's RGB (and raw components), each image at its byte offset.
 int ssd_jpeg_idct_color(const short* coef, const int* qtables, const int* images, const int* tiles, int ntiles,
                         uint8_t* out, void* stream) {
   if (ntiles < 1) return static_cast<int>(cudaErrorInvalidValue);

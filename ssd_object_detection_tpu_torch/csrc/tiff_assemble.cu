@@ -1,25 +1,32 @@
-// TIFF chunk assembly on Hopper (sm_90a), K10: every TIFF chunk of a batch (a strip or a
-// tile of one plane, decoded by the host or, LZW, by K9 in csrc/gif_lzw.cu, or, JPEG, by
-// the JPEG kernels into their RGB output) -> its image's buffer, launched by
-// ops/cuda_image.py::tiff_assemble. K8 (raw_image.cu) then turns each image buffer into RGB.
+// TIFF chunks' predictor and byte order on Hopper (sm_90a), K10: in place, in a decode
+// call's device buffer (data/codec.py::RawBatch), every TIFF chunk of the call that has a
+// horizontal predictor or 16-bit samples of a big-endian file, decoded by the host or,
+// LZW, by K9 in csrc/gif_lzw.cu; launched by ops/cuda_image.py::tiff_assemble, and not at
+// all where no chunk of the call needs it. K8 (raw_image.cu) then reads each TIFF's samples
+// straight from its chunks (no image buffer, no placed copy, no zero fill).
 //
 // Replaces no Pallas kernel: the JAX package reads TIFFs with cv2 on the host
 // (ssd_object_detection_tpu/data/pipeline.py:70-87, eval/serve.py:374-381). Its plain
 // version, which it is held to bit for bit, is ops/plain_image.py::tiff_assemble: what
-// libtiff 4.7 does to a decoded chunk before cv2's RGBA read places it: the horizontal
-// predictor undone (tif_predict.c horAcc8 / horAcc16: each sample plus the one a pixel
-// before it, mod 2^8 or 2^16), the 16-bit samples of a big-endian file swapped to the
-// host's order, neither where the chunk's decoding failed (K9's status for an LZW chunk),
-// then the rows placed in the chunk's rectangle, cut at the image's edge, read `pitch`
-// bytes apart (libtiff's put routines skew a tile cut at the right edge). A JPEG chunk's
-// rows are read from the JPEG kernels' RGB output, its frame's rows `pitch` bytes apart and
-// every `jpeg_step`-th byte of them (3: a gray chunk's one sample), as many as the frame
-// holds: what it lacks of the chunk stays zero, as libtiff leaves it.
+// libtiff 4.7 does to a decoded chunk before cv2's RGBA read puts it: the 16-bit samples
+// of a big-endian file swapped to the host's order, the horizontal predictor undone
+// (tif_predict.c horAcc8 / horAcc16: each sample plus the one a pixel before it, mod 2^8
+// or 2^16), neither where the chunk's decoding failed (K9's status for an LZW chunk).
 //
-// One CTA a chunk, a warp a row: the predictor is a prefix sum along the row, a pixel a
-// lane (up to four samples), a shuffle scan over 32 pixels at a time with the last lane's
-// sums carried, in place in the decoded rows; after a barrier, the warps copy the placed
-// rows out, consecutive lanes on consecutive bytes. The bytes moved bound it.
+// One warp a row, over every row of the call's listed chunks (a warp finds its chunk and
+// row in one load of the rows' table; a binary search over the list, a chain of dependent
+// loads, took a third of the kernel's time on one TIFF). The predictor is a prefix sum along
+// the row; a serial walk of 32-pixel shuffle scans (a first design) took longer than the
+// placing kernel it replaced, 20 dependent steps a 640-pixel row. So a warp takes a window
+// of kStageBytes of its row into shared memory (loads coalesced, a byte a lane, kCopy of
+// them in flight a lane: a load then its store in turn made the copy a chain), each lane
+// sums its share of consecutive pixels' samples, one shuffle scan of the lanes' sums gives
+// each lane its start (the window's carry added), each lane writes its pixels' running
+// sums back, and the window goes out coalesced: one window for a row of up to 1,344 8-bit
+// RGB pixels, split over all 32 lanes (a lane's share is the serial part: on cv2's 640x480
+// TIFF, 42 pixels a lane with 16 lanes idle took 0.0183 ms, 20 a lane 0.0117), 32 KB of
+// stage a CTA so that seven CTAs share an SM. The bytes moved bound it (each row read and
+// written once).
 
 #include <cuda_runtime.h>
 
@@ -29,89 +36,109 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunkInts = 13;  // data/codec.py TIFF_CHUNK_INTS
-enum { kSrc, kRows, kRowBytes, kDst, kStride, kPlaced, kPredictor, kSamples, kSwab, kStream, kWidth, kPitch,
-       kJpegStep };
+constexpr int kStageBytes = 4096;             // a warp's window of its row in shared memory
+constexpr int kCopy = 32;                     // bytes a lane moves at once
+constexpr int kChunkInts = 12;  // data/codec.py TIFF_CHUNK_INTS
+constexpr int kWorkInts = 2;    // data/codec.py K10_WORK_INTS: the chunk, rows before it
+constexpr int kRowInts = 2;     // data/codec.py K10_ROW_INTS: a row's chunk, its row there
+// data/codec.py C_*: the fields K10 reads
+enum { kSrc = 0, kRows = 5, kRowBytes = 6, kWidth = 7, kSamples = 8, kPredictor = 9, kSwab = 10, kStream = 11 };
 constexpr int kOk = 0;  // data/codec.py GIF_OK
 
-// One decoded row: 16-bit samples swapped where `swab`, then (predictor 8 or 16) each
-// sample summed with the ones a pixel before it, in place.
-__device__ void undo_row(uint8_t* row, int width, int samples, int predictor, bool swab, int lane) {
-  const bool wide = predictor == 16 || (predictor == 0 && swab);
-  const unsigned int mask = wide ? 0xffffu : 0xffu;
-  unsigned int carry[4] = {0u, 0u, 0u, 0u};
-  for (int p0 = 0; p0 < width; p0 += 32) {
-    const int p = p0 + lane;
-    unsigned int v[4] = {0u, 0u, 0u, 0u};
+// A window's `bytes` bytes from `from` to `to`, a byte a lane, kCopy loads issued before
+// their stores (a loop of a load then its store waits on every load in turn).
+__device__ __forceinline__ void copy_window(const uint8_t* from, uint8_t* to, int bytes, int lane) {
+  for (int i0 = 0; i0 < bytes; i0 += 32 * kCopy) {
+    uint8_t v[kCopy];
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (s < samples && p < width) {
-        const int i = p * samples + s;
-        v[s] = wide ? (swab ? (row[2 * i] << 8) | row[2 * i + 1] : row[2 * i] | (row[2 * i + 1] << 8)) : row[i];
-      }
-    }
-    if (predictor) {
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-#pragma unroll
-        for (int s = 0; s < 4; ++s) {
-          const unsigned int t = __shfl_up_sync(0xffffffffu, v[s], o);
-          if (lane >= o) v[s] += t;
-        }
-      }
-#pragma unroll
-      for (int s = 0; s < 4; ++s) {
-        v[s] = (v[s] + carry[s]) & mask;
-        carry[s] = __shfl_sync(0xffffffffu, v[s], 31);
-      }
+    for (int j = 0; j < kCopy; ++j) {
+      const int i = i0 + 32 * j + lane;
+      v[j] = i < bytes ? from[i] : 0;
     }
 #pragma unroll
-    for (int s = 0; s < 4; ++s) {
-      if (s < samples && p < width) {
-        const int i = p * samples + s;
-        if (wide) {
-          row[2 * i] = static_cast<uint8_t>(v[s]);
-          row[2 * i + 1] = static_cast<uint8_t>(v[s] >> 8);
-        } else {
-          row[i] = static_cast<uint8_t>(v[s]);
-        }
-      }
+    for (int j = 0; j < kCopy; ++j) {
+      const int i = i0 + 32 * j + lane;
+      if (i < bytes) to[i] = v[j];
     }
   }
 }
 
+// Sample s of pixel q of a staged window: 16 bits (in the file's byte order where `swab`)
+// or 8.
+__device__ __forceinline__ unsigned int staged(const uint8_t* st, int q, int s, int samples, bool wide, bool swab) {
+  const int i = q * samples + s;
+  if (!wide) return st[i];
+  return swab ? (st[2 * i] << 8) | st[2 * i + 1] : st[2 * i] | (st[2 * i + 1] << 8);
+}
+
 __global__ void __launch_bounds__(kThreads)
-    assemble_kernel(uint8_t* __restrict__ decoded, const uint8_t* __restrict__ jpeg, const int* __restrict__ chunks,
-                    const int* __restrict__ status, uint8_t* __restrict__ out) {
-  const int* c = chunks + kChunkInts * blockIdx.x;
-  const int rows = c[kRows];
+    predictor_kernel(uint8_t* __restrict__ buffer, int chunk_at, int work_at, int works, int rows,
+                     const int* __restrict__ status) {
+  __shared__ __align__(16) uint8_t stage[kWarps][kStageBytes];
+  const int* desc = reinterpret_cast<const int*>(buffer);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int placed = c[kPlaced], pitch = c[kPitch], stride = c[kStride];
-  uint8_t* dst = out + c[kDst];
-  const int step = c[kJpegStep];
-  if (step) {  // a JPEG chunk: no predictor, no swap
-    if (jpeg == nullptr) return;
-    const uint8_t* src = jpeg + c[kSrc];
-    for (int r = warp; r < rows; r += kWarps) {
-      const uint8_t* from = src + static_cast<long long>(r) * pitch;
-      uint8_t* to = dst + static_cast<long long>(r) * stride;
-      for (int i = lane; i < placed; i += 32) to[i] = from[i * step];
+  const int g = blockIdx.x * kWarps + warp;
+  if (g >= rows) return;  // the same for the whole warp
+  const int* entry = desc + work_at + works * kWorkInts + static_cast<long long>(g) * kRowInts;  // after the list
+  const int* c = desc + chunk_at + static_cast<long long>(entry[0]) * kChunkInts;
+  if (c[kStream] >= 0 && status[c[kStream]] != kOk) return;  // as it decoded, as libtiff leaves it
+  const int r = entry[1];
+  uint8_t* row = buffer + c[kSrc] + static_cast<long long>(r) * c[kRowBytes];
+  const int width = c[kWidth], samples = c[kSamples], predictor = c[kPredictor];
+  const bool swab = c[kSwab] != 0, wide = predictor == 16 || (predictor == 0 && swab);
+  const unsigned int mask = wide ? 0xffffu : 0xffu;
+  const int pixel_bytes = samples * (wide ? 2 : 1);
+  // a lane's pixels: as few as the row needs (every lane busy), at most what the stage holds
+  const int per_lane = min(kStageBytes / (32 * pixel_bytes), (width + 31) / 32), window = 32 * per_lane;
+  uint8_t* st = stage[warp];
+  unsigned int carry[4] = {0u, 0u, 0u, 0u};
+  for (int p0 = 0; p0 < width; p0 += window) {
+    const int n = min(window, width - p0), bytes = n * pixel_bytes;
+    uint8_t* g_row = row + static_cast<long long>(p0) * pixel_bytes;
+    copy_window(g_row, st, bytes, lane);
+    __syncwarp();
+    const int q0 = lane * per_lane, q1 = min(q0 + per_lane, n);
+    unsigned int start[4] = {0u, 0u, 0u, 0u};
+    if (predictor) {
+      unsigned int sum[4] = {0u, 0u, 0u, 0u};
+      for (int q = q0; q < q1; ++q) {
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          if (s < samples) sum[s] += staged(st, q, s, samples, wide, swab);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {  // the lanes before this one, and the windows before this one
+        unsigned int incl = sum[s];
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const unsigned int t = __shfl_up_sync(0xffffffffu, incl, o);
+          if (lane >= o) incl += t;
+        }
+        start[s] = carry[s] + incl - sum[s];
+        carry[s] = (carry[s] + __shfl_sync(0xffffffffu, incl, 31)) & mask;
+      }
     }
-    return;
-  }
-  const bool failed = c[kStream] >= 0 && status[c[kStream]] != kOk;
-  const int predictor = failed ? 0 : c[kPredictor];
-  const bool swab = !failed && c[kSwab] != 0;
-  uint8_t* src = decoded + c[kSrc];
-  if (predictor || swab) {  // the same for every thread of the CTA
-    for (int r = warp; r < rows; r += kWarps)
-      undo_row(src + static_cast<long long>(r) * c[kRowBytes], c[kWidth], c[kSamples], predictor, swab, lane);
-    __syncthreads();
-  }
-  for (int r = warp; r < rows; r += kWarps) {
-    const uint8_t* from = src + static_cast<long long>(r) * pitch;
-    uint8_t* to = dst + static_cast<long long>(r) * stride;
-    for (int i = lane; i < placed; i += 32) to[i] = from[i];
+    __syncwarp();  // every lane has read its window before any writes
+    for (int q = q0; q < q1; ++q) {
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if (s < samples) {
+          const unsigned int v = staged(st, q, s, samples, wide, swab);
+          start[s] += predictor ? v : 0u;
+          const unsigned int out = (predictor ? start[s] : v) & mask;
+          const int i = q * samples + s;
+          if (wide) {
+            st[2 * i] = static_cast<uint8_t>(out);
+            st[2 * i + 1] = static_cast<uint8_t>(out >> 8);
+          } else {
+            st[i] = static_cast<uint8_t>(out);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    copy_window(st, g_row, bytes, lane);
+    __syncwarp();  // before the next window's loads reuse the stage
   }
 }
 
@@ -119,13 +146,15 @@ __global__ void __launch_bounds__(kThreads)
 
 extern "C" {
 
-// K10: chunks as data/codec.py::tiff_batch (TIFF_CHUNK_INTS rows) over `decoded`, which the
-// predictor is undone in (in place), and `jpeg`, the JPEG chunks' RGB (null: none, and the
-// JPEG chunks stay zero); status: K9's, a stream; `out` the batch's image buffer.
-int ssd_tiff_assemble(uint8_t* decoded, const uint8_t* jpeg, const int* chunks, int nchunks, const int* status,
-                      uint8_t* out, void* stream) {
-  if (nchunks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  assemble_kernel<<<nchunks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(decoded, jpeg, chunks, status, out);
+// K10: the `works` listed chunks (data/codec.py::RawBatch: the chunk table at int
+// `chunk_at`, the list at int `work_at` of `buffer`, each row's chunk and row there after the
+// list), `rows` rows in all, a warp each;
+// status: K9's, a stream (null where the call has no LZW chunk).
+int ssd_tiff_assemble(uint8_t* buffer, int chunk_at, int work_at, int works, int rows, const int* status,
+                      void* stream) {
+  if (works < 1 || rows < 1) return static_cast<int>(cudaErrorInvalidValue);
+  predictor_kernel<<<(rows + kWarps - 1) / kWarps, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      buffer, chunk_at, work_at, works, rows, status);
   return static_cast<int>(cudaGetLastError());
 }
 

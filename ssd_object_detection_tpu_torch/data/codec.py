@@ -41,17 +41,19 @@ every colour type and bit depth, interlaced or not; GIF87a and GIF89a (the first
 its logical screen, LZW minimum code sizes 2-11, interlaced or not, transparency);
 TIFF and BigTIFF as cv2 5.0 reads them through libtiff 4.7 (parse_tiff: strips, tiles,
 separate planes, uncompressed, PackBits, Deflate, LZW and JPEG (each chunk an image of the
-batch's JPEG launches), the predictor, 1- to 16-bit gray, palette, RGB(A) and CMYK
-samples, the orientation; a compression code no codec claims as zero samples); BMPs (core and info headers,
+batch's JPEG launches), the predictor, 1- to 16-bit gray, palette, RGB(A), CMYK, YCbCr
+(every subsampling libtiff puts) and CIELab samples, the orientation; a compression code
+no codec claims as zero samples); BMPs (core and info headers,
 1/4/8-bit palettes, RLE4/RLE8, 16-bit 555/565, 24 and 32 bits, either row order), P1-P6
 with any maxval, PAM (P7: gray and RGB of 8 or 16 bits,
 and MAXVAL 1 bits, as cv2 5.0 reads them), Sun rasters of 1, 8, 24 and 32 bits (the
 old and the standard type), 3-channel PFMs of either byte order, Radiance HDRs (`-Y H +X
 W`, RLE or flat scanlines). Refused with `UnsupportedImage` (cv2 reads them):
-TIFFs of the CCITT codecs (1-bit), ThunderScan (4-bit) and SGILog (LogLuv), uncompressed
-YCbCr and CIELab TIFFs, uncompressed tiled TIFFs of 4 samples (and any read from a file,
-which cv2.imread reads: check_file_read), JPEG-in-TIFFs of other samples than 8-bit gray,
-palette, RGB or YCbCr in one plane, WebP, JPEG 2000, AVIF (by any brand of its `ftyp` box), lossless, hierarchical
+TIFFs of the CCITT codecs (1-bit), ThunderScan (4-bit) and SGILog (LogLuv), YCbCr TIFFs of
+4 x 4 data units that are no whole number of scanlines (cv2 reads memory libtiff never
+wrote), uncompressed tiled TIFFs of 4 samples (and any read from a file, which cv2.imread
+reads: check_file_read), 12-bit JPEG-in-TIFFs, old-style LZW, WebP, JPEG 2000, AVIF (by any
+brand of its `ftyp` box), lossless, hierarchical
 and arithmetic-coded JPEGs, 12-bit ones, a 1-channel PFM (cv2 returns it with one
 channel, which the JAX package's decode paths do not take) and a PAM with alpha past
 MAXVAL 1 (cv2 fills most of it from memory it never wrote). Bytes cv2 returns None for
@@ -111,7 +113,7 @@ ROUTE_K1, ROUTE_DC_REFINE, ROUTE_AC_REFINE = 0, 1, 2
 # run out (libjpeg's insufficient_data flag survives the failed restart)].
 SEG_INTS = 7
 MAX_SCAN_COMPS = 4
-# One image as the fused IDCT and colour kernel reads it: [output pixel offset, out h,
+# One image as the fused IDCT and colour kernel reads it: [output byte offset, out h,
 # out w, decoded h, decoded w, orientation, ncomp, colour space, then per component:
 # plane offset (its first block x 64), plane stride (its blocks a row x 8), downsampled
 # w, downsampled h, h factor, v factor, upsampling mode, its quantisation table's row].
@@ -123,6 +125,8 @@ IMG_INTS = 40
 TILE_INTS = 5
 JPEG_TILE_W, JPEG_TILE_H, JPEG_POOL_BLOCKS = 128, 32, 256
 SPACE_GRAY, SPACE_YCC, SPACE_RGB, SPACE_CMYK, SPACE_YCCK = 0, 1, 2, 3, 4
+# the components as they are, a byte each a pixel (a JPEG-in-TIFF chunk but YCbCr's)
+SPACE_RAW = 5
 UP_COPY, UP_H2V1, UP_H1V2, UP_H2V2, UP_BOX = 0, 1, 2, 3, 4
 # Bits of each subsequence of a restart segment that the entropy kernel K1 synchronises
 # (csrc/jpeg_decode.cu; ops/jpeg_sync_model.py models it): 3072 bits cut a 640x480 COCO
@@ -309,8 +313,10 @@ def _check_progression(ss: int, se: int, ah: int, al: int, ns: int) -> None:
         raise ValueError(f"corrupt JPEG: bad progression (Ss={ss} Se={se} Ah={ah} Al={al})")
 
 
-def parse_jpeg(data: bytes) -> JpegImage:
-    """Walk the markers of a JPEG; raises UnsupportedImage or ValueError."""
+def parse_jpeg(data: bytes, raw: bool = False) -> JpegImage:
+    """Walk the markers of a JPEG; raises UnsupportedImage or ValueError. `raw`: its
+    components come out as they are (libjpeg's JCS_UNKNOWN, as libtiff's JPEG codec asks
+    for them), so two components are a frame like any other (SPACE_RAW)."""
     d = np.frombuffer(data, np.uint8)
     if d.size < 4 or d[0] != 0xFF or d[1] != 0xD8:
         raise ValueError("not a JPEG")
@@ -365,9 +371,9 @@ def parse_jpeg(data: bytes) -> JpegImage:
             precision, height, width, nc = struct.unpack(">BHHB", body[:6])
             if precision != 8:
                 raise UnsupportedImage(f"{precision}-bit JPEGs are not supported (8-bit only; unchecked against cv2)")
-            if nc == 2:  # libjpeg has no colour conversion for it: cv2 returns None
+            if nc == 2 and not raw:  # libjpeg has no colour conversion for it: cv2 returns None
                 raise ValueError("corrupt JPEG: 2 components (no colour conversion)")
-            if nc not in (1, 3, 4):
+            if nc not in (1, 2, 3, 4):
                 raise UnsupportedImage(f"{nc}-component JPEGs are not supported (unchecked against cv2)")
             if height == 0 or width == 0:
                 raise ValueError("corrupt JPEG: empty frame (or DNL-defined height)")
@@ -492,7 +498,9 @@ def parse_jpeg(data: bytes) -> JpegImage:
         raise ValueError("corrupt JPEG: a component appears in no scan")
     qtables = [latched[i] for i in range(len(comps))]
     _steps(scans)
-    if len(comps) == 1:
+    if raw:
+        space = SPACE_RAW
+    elif len(comps) == 1:
         space = SPACE_GRAY
     elif len(comps) == 4:  # libjpeg: Adobe transform 2 (or unknown) YCCK, else CMYK
         space = SPACE_YCCK if adobe and transform != 0 else SPACE_CMYK
@@ -572,9 +580,15 @@ class JpegBatch:
     max_guesses: int
     out_shapes: List[Tuple[int, int]]
 
+    out_channels: List[int] = dataclasses.field(default_factory=list)  # bytes a pixel of each image's output
+
     @property
     def total_pixels(self) -> int:
         return sum(h * w for h, w in self.out_shapes)
+
+    @property
+    def total_bytes(self) -> int:
+        return sum(h * w * c for (h, w), c in zip(self.out_shapes, self.out_channels))
 
     def to(self, device: torch.device) -> "JpegBatch":
         """The batch on `device`. ValueError for a tile table with a tile of more than
@@ -614,10 +628,17 @@ def _upsample_mode(fh: int, fv: int, dw: int) -> int:
     return UP_BOX
 
 
-def tile_shape(hmax: int, vmax: int) -> Tuple[int, int]:
+def pixel_bytes(space: int, ncomp: int) -> int:
+    """Bytes a pixel of the fused kernel's output: RGB, or the raw components."""
+    return ncomp if space == SPACE_RAW else 3
+
+
+def tile_shape(hmax: int, vmax: int, channels: int = 3) -> Tuple[int, int]:
     """(rows, columns) of an image's tiles: the most whole MCUs (8 hmax x 8 vmax pixels)
-    that fit in JPEG_TILE_H x JPEG_TILE_W, the fused kernel's shared stage."""
-    return 8 * vmax * (JPEG_TILE_H // (8 * vmax)), 8 * hmax * (JPEG_TILE_W // (8 * hmax))
+    that fit in JPEG_TILE_H x JPEG_TILE_W, the fused kernel's shared stage of 3 bytes a
+    pixel, fewer rows where its output takes 4."""
+    rows = JPEG_TILE_H * 3 // max(channels, 3)
+    return 8 * vmax * (rows // (8 * vmax)), 8 * hmax * (JPEG_TILE_W // (8 * hmax))
 
 
 def image_tiles(index: int, height: int, width: int, shape: Tuple[int, int]) -> np.ndarray:
@@ -647,8 +668,8 @@ def jpeg_batch(images: Sequence[JpegImage]) -> JpegBatch:
     seg_rows, job_rows, comp_rows, qts, img_rows, pieces, tables, prog = [], [], [], [], [], [], [], []
     tile_rows = []
     smooth_rows, rounds = [], {}  # rounds: (step, r) -> segment ids
-    block, byte, table_base, out_pix, subseq, max_subseqs, max_guesses = 0, 0, 0, 0, 0, 0, 0
-    out_shapes = []
+    block, byte, table_base, out_at, subseq, max_subseqs, max_guesses = 0, 0, 0, 0, 0, 0, 0
+    out_shapes, out_channels = [], []
     for im in images:
         first = []
         for ci in range(len(im.comps)):
@@ -702,7 +723,7 @@ def jpeg_batch(images: Sequence[JpegImage]) -> JpegBatch:
         table_base += len(im.huffman)
         oh, ow = oriented_hw(im.height, im.width, im.orientation)
         row = np.zeros(IMG_INTS, np.int32)
-        row[:8] = (out_pix, oh, ow, im.height, im.width, im.orientation, len(im.comps), im.space)
+        row[:8] = (out_at, oh, ow, im.height, im.width, im.orientation, len(im.comps), im.space)
         for ci in range(len(im.comps)):
             _, h, v, _ = im.comps[ci]
             bw, _ = im.blocks_wh(ci)
@@ -710,13 +731,15 @@ def jpeg_batch(images: Sequence[JpegImage]) -> JpegBatch:
             fh, fv = im.hmax // h, im.vmax // v
             row[8 + 8 * ci:16 + 8 * ci] = (first[ci] * 64, bw * 8, dw, dh, fh, fv, _upsample_mode(fh, fv, dw),
                                            len(comp_rows) - len(im.comps) + ci)
-        shape = tile_shape(im.hmax, im.vmax)
+        channels = pixel_bytes(im.space, len(im.comps))
+        shape = tile_shape(im.hmax, im.vmax, channels)
         if tile_blocks(im, shape) > JPEG_POOL_BLOCKS:
             raise ValueError(f"a JPEG tile of {shape} holds more than {JPEG_POOL_BLOCKS} blocks")
         tile_rows.append(image_tiles(len(img_rows), im.height, im.width, shape))
         img_rows.append(row)
         out_shapes.append((oh, ow))
-        out_pix += oh * ow
+        out_channels.append(channels)
+        out_at += oh * ow * channels
     data = np.frombuffer(b"".join(pieces) + bytes(16), np.uint8).copy()
     k6_segs, k6_rounds = [], []
     for key in sorted(rounds):
@@ -738,7 +761,7 @@ def jpeg_batch(images: Sequence[JpegImage]) -> JpegBatch:
         tiles=t(np.concatenate(tile_rows) if tile_rows else [], TILE_INTS),
         smooth=t(smooth_rows, SMOOTH_INTS), smooth_blocks=sum(r[1] * r[2] for r in smooth_rows), steps=steps,
         total_blocks=block, total_subseqs=subseq, max_subseqs=max_subseqs, max_guesses=max_guesses,
-        out_shapes=out_shapes,
+        out_shapes=out_shapes, out_channels=out_channels,
     )
 
 
@@ -920,17 +943,7 @@ def png_batch(images: Sequence[PngImage]) -> PngBatch:
 # x255 as convertTo rounds).
 (RAW_PAL1, RAW_PAL4, RAW_PAL8, RAW_BGR555, RAW_BGR565, RAW_BGR, RAW_BGRX, RAW_RGB, RAW_GRAY, RAW_RGB16,
  RAW_GRAY16, RAW_TEXT, RAW_FLOAT, RAW_RGBE, RAW_BGR16) = range(15)
-# One raw image as K8 reads it: [height, width, format, byte of the first window row,
-# bytes from one window row to the next (negative: the file stores rows bottom-up),
-# samples a pixel (RAW_TEXT, RAW_FLOAT, a TIFF's), maxval (RAW_TEXT; a TIFF's bits a
-# sample), 1 for big-endian floats, then the window the rows cover: its first row, first
-# column, height and width; the orientation (1-8) the output takes, as K3's; a TIFF's
-# colour samples read (1: gray planes, R = G = B), the sample its unassociated alpha
-# premultiplies by (-1: none), the bytes from one plane to the next (0: one plane) and
-# the width of the tiles whose columns are read mirrored, each tile's shown columns in
-# reverse order (0: none)]. Pixels outside the window (a GIF frame smaller than its
-# screen) take palette entry 256.
-RAW_INTS = 17
+# K8's image rows: see RAW_INTS (with the TIFF and GIF views, below).
 RAW_KINDS = ("bmp", "pxm", "pam", "sunras", "pfm", "hdr")
 
 
@@ -958,18 +971,14 @@ class RawImage:
     orientation: int = 1
     colour_channels: int = 3
     alpha: int = -1
-    plane_bytes: int = 0
+    planar: int = 0  # a TIFF of separate planes: sample s in plane s
     mirror: int = 0
 
     @property
     def out_hw(self) -> Tuple[int, int]:
         return oriented_hw(self.height, self.width, self.orientation)
 
-    def params(self) -> np.ndarray:
-        window = self.window or (0, 0, self.height, self.width)
-        return np.array([self.height, self.width, self.fmt, self.offset, self.stride, self.channels,
-                         self.maxval, self.big_endian, *window, self.orientation, self.colour_channels, self.alpha,
-                         self.plane_bytes, self.mirror], np.int32)
+
 
 
 def _need(data: bytes, end: int, what: str) -> None:
@@ -1718,7 +1727,7 @@ class GifBatch:
     data: torch.Tensor  # uint8: every stream's LZW data, one after another
     gifs: torch.Tensor  # (G, GIF_INTS) int32: the GIFs' streams, then the TIFF chunks'
     total_indices: int  # the bytes of K9's output: the frames' pixels, then `tiff_bytes`
-    tiff_bytes: int = 0  # the TIFF batch's chunk buffer (TiffBatch.decoded), after the frames
+    tiff_bytes: int = 0  # the TIFF LZW chunks' decoded bytes, after the frames
 
     @property
     def frame_indices(self) -> int:
@@ -1729,9 +1738,10 @@ class GifBatch:
                                    gifs=self.gifs.to(device, non_blocking=True))
 
 
-def gif_batch(images: Sequence[GifImage], tiff: Optional["TiffBatch"] = None) -> GifBatch:
+def gif_batch(images: Sequence[GifImage], lzw: Sequence[Tuple[bytes, int]] = ()) -> GifBatch:
     """The batch's LZW table: one K9 launch decodes every GIF frame and every TIFF LZW
-    chunk, the chunks into the TIFF chunk buffer placed after the frames' indices."""
+    chunk (`lzw`: its stored bytes and the bytes it fills), the chunks back to back after
+    the frames' indices."""
     rows, at, out, pieces = [], 0, 0, []
     for g in images:
         mask = np.packbits(g.valid.reshape(8, 32)[:, ::-1], axis=1, bitorder="big").view(">u4").reshape(8)
@@ -1740,11 +1750,12 @@ def gif_batch(images: Sequence[GifImage], tiff: Optional["TiffBatch"] = None) ->
         pieces.append(g.lzw)
         at += len(g.lzw)
         out += g.frame_width * g.frame_height
-    tiff_bytes = int(tiff.decoded.numel()) if tiff is not None else 0
-    for raw, offset, size in (tiff.lzw if tiff is not None else ()):
-        rows.append([at, len(raw), 8, size, 1, 0, out + offset, -1, *[-1] * 8, LZW_TIFF])
+    tiff_bytes = 0
+    for raw, size in lzw:
+        rows.append([at, len(raw), 8, size, 1, 0, out + tiff_bytes, -1, *[-1] * 8, LZW_TIFF])
         pieces.append(raw)
         at += len(raw)
+        tiff_bytes += size
     if at >= 2 ** 31 or out + tiff_bytes >= 2 ** 31:
         raise ValueError("LZW batch too large for one launch")
     data = np.frombuffer(b"".join(pieces) or b"\0", np.uint8)
@@ -1760,8 +1771,8 @@ def gif_batch(images: Sequence[GifImage], tiff: Optional["TiffBatch"] = None) ->
 # The host here walks the directory, checks it as cv2 and libtiff do, cuts the image
 # into chunks (a strip or a tile of one plane) and inflates or unpacks the Deflate,
 # PackBits and uncompressed ones; LZW chunks go to K9 (its TIFF flavour), K10 undoes the
-# horizontal predictor and places every chunk in its image, and K8 turns the samples
-# into RGB by libtiff's put routine.
+# horizontal predictor and the byte swap in place, and K8 reads every sample through its
+# chunk and turns the samples into RGB by libtiff's put routine.
 TIFF_MAGICS = {b"II*\0": ("<", False), b"MM\0*": (">", False), b"II+\0": ("<", True), b"MM\0+": (">", True)}
 _TIFF_TYPES = {1: "B", 3: "H", 4: "I", 6: "b", 8: "h", 9: "i", 16: "Q", 17: "q"}  # the integer types
 TIFF_NONE, TIFF_LZW, TIFF_DEFLATE, TIFF_ADOBE_DEFLATE, TIFF_PACKBITS, TIFF_JPEG = 1, 5, 8, 32946, 32773, 7
@@ -1804,22 +1815,24 @@ def tiff_compression_outcome(compression: int, bits: int, photometric: int) -> T
     return "zero", _TIFF_UNCLAIMED.get(compression, f"compression {compression}")
 # K8's view of a TIFF's samples (codec.RawImage.fmt): through a 256-entry table (gray
 # contig, palette: libtiff's BWmap and PALmap), as RGB (RGB, and gray planes, which
-# tif_getimage.c treats as RGB), or as CMYK
-TIFF_LUT_FORMAT, TIFF_RGB_FORMAT, TIFF_CMYK_FORMAT = 15, 16, 17
-# One chunk as K10 reads it: [byte of its decoded rows in the batch's chunk buffer, rows
-# placed in the image, bytes a decoded row, byte of its first placed row in the batch's
-# image buffer, bytes from one image row to the next, bytes of a row placed, predictor
-# (0, or the bits a sample: 8, 16), samples a pixel, 1 to swap 16-bit samples' bytes (a
+# tif_getimage.c treats as RGB), as CMYK, as YCbCr (TIFFYCbCrtoRGB through the tables of
+# TIFFYCbCrToRGBInit, contiguous samples in their subsampled data units) or as CIELab
+# (TIFFCIELabToXYZ, then TIFFXYZToRGB through the tables of TIFFCIELabToRGBInit)
+TIFF_LUT_FORMAT, TIFF_RGB_FORMAT, TIFF_CMYK_FORMAT, TIFF_YCBCR_FORMAT, TIFF_LAB_FORMAT = 15, 16, 17, 18, 19
+# One chunk (a strip or a tile of one plane) as K10 and K8 read it: [byte of its decoded
+# rows in the batch's byte buffer (or, for a JPEG chunk, of its frame in the JPEG kernels'
+# output), 1 for a JPEG chunk, bytes from one row of pixels to the next as libtiff's put
+# routine reads them (a decoded row's bytes, but where it skews a tile cut at the image's
+# right edge: see _tile_pitch; a YCbCr data-unit row's), rows it holds (0: a later
+# plane's chunk libtiff could not read, zero samples), bytes a row holds (a JPEG chunk's
+# frame may be smaller than its chunk: what it lacks reads as zero, as libtiff leaves
+# it), then K10's view: rows the predictor walks, bytes a row, pixels a row, samples a
+# pixel, predictor (0, or the bits a sample: 8, 16), 1 to swap 16-bit samples' bytes (a
 # big-endian file), its K9 stream (-1: none; a stream whose status is not OK skips the
-# predictor and the swap, as libtiff does after a decoding error), pixels a decoded row,
-# bytes from one placed row's first byte to the next's in the decoded rows (a decoded
-# row's bytes, but where libtiff's put routine skews a tile cut at the image's right
-# edge: see _tile_pitch), 0 or, for a JPEG chunk, the bytes of the JPEG kernels' RGB
-# output a placed byte steps over (1, or 3 for one sample a pixel)]. A JPEG chunk's rows
-# are read from that RGB output: its first field is the byte of its frame there, its
-# rows and bytes placed are cut to what the frame holds, and its pitch is the frame's
-# RGB row.
-TIFF_CHUNK_INTS = 13
+# predictor and the swap, as libtiff does after a decoding error)].
+TIFF_CHUNK_INTS = 12
+(C_SRC, C_JPEG, C_PITCH, C_ROWS_HELD, C_BYTES_HELD, C_ROWS, C_ROW_BYTES, C_WIDTH, C_SAMPLES, C_PREDICTOR, C_SWAB,
+ C_STREAM) = range(TIFF_CHUNK_INTS)
 # K9's flavours (GIF_INTS row, field 16)
 LZW_GIF, LZW_TIFF = 0, 1
 TIFF_LZW_CLEAR, TIFF_LZW_EOI = 256, 257
@@ -1831,18 +1844,24 @@ class TiffChunk:
     decoded rows go. `decoded` holds the host's decode (None for an LZW chunk: K9's)."""
 
     raw: bytes
-    rows: int  # rows the decoder fills
+    rows: int  # rows the decoder fills (a YCbCr chunk's: scanlines, as libtiff's predictor walks them)
     row_bytes: int
-    width: int  # pixels a decoded row
+    width: int  # pixels a decoded row (as the predictor walks them)
     y0: int
     byte0: int  # the byte of its first column in an image row
     plane: int
     placed_rows: int
     placed_bytes: int
-    pitch: int  # bytes from one placed row to the next in the decoded rows
+    pitch: int  # bytes from one row of pixels to the next as the put routine reads them
     decoded: Optional[bytes] = None
     ok: bool = True  # the host's decode filled the chunk (else no predictor and no swap)
     jpeg: Optional[JpegImage] = None  # a JPEG-in-TIFF chunk's abbreviated stream, tables loaded
+    missing: bool = False  # a later plane's chunk libtiff reads without checking: zero samples
+
+    @property
+    def size(self) -> int:
+        """The bytes the decoder fills."""
+        return self.rows * self.row_bytes
 
 
 @dataclasses.dataclass
@@ -1852,27 +1871,36 @@ class TiffImage:
     orientation: int
     bits: int
     samples: int  # a pixel of a decoded row: SamplesPerPixel, 1 for separate planes
-    planes: int  # planes in the image buffer
-    stride: int  # bytes an image row of a plane
+    planes: int  # planes read
     predictor: int  # 0, or the bits of a sample the horizontal predictor adds
     swab: bool
     fmt: int
     colour_channels: int
     alpha: int  # the sample libtiff premultiplies by (unassociated alpha), -1 none
     palette: np.ndarray
-    chunks: List[TiffChunk]
+    chunks: List[TiffChunk]  # plane by plane, each plane's chunks row-major
     mirror: int = 0  # the width of the tiles whose shown columns libtiff mirrors (0: none)
+    chunk_hw: Tuple[int, int] = (0, 0)  # rows and pixels a chunk covers (a strip's rows and the width, or a tile)
+    subsampling: Tuple[int, int] = (1, 1)  # YCbCr's data unit (horizontal, vertical)
+    # the conversion's tables: ("ycbcr", YCbCrCoefficients, ReferenceBlackWhite) or ("lab", WhitePoint)
+    tables: Optional[tuple] = None
 
     @property
-    def nbytes(self) -> int:
-        return self.planes * self.height * self.stride
+    def across(self) -> int:
+        """Chunks a row of chunks."""
+        return -(-self.width // self.chunk_hw[1])
+
+    @property
+    def per_plane(self) -> int:
+        return len(self.chunks) // self.planes
 
     def raw(self) -> RawImage:
-        """K8's view of the image buffer (K10's output, on the device)."""
-        return RawImage(self.height, self.width, self.fmt, b"", 0, self.stride, channels=self.samples,
+        """K8's view of the image: the samples read through its chunks (K10 has undone the
+        predictor and the byte swap in place)."""
+        return RawImage(self.height, self.width, self.fmt, b"", 0, self.chunk_hw[0], channels=self.samples,
                         maxval=self.bits, palette=self.palette, orientation=self.orientation,
-                        colour_channels=self.colour_channels, alpha=self.alpha,
-                        plane_bytes=self.height * self.stride if self.planes > 1 else 0, mirror=self.mirror)
+                        colour_channels=self.colour_channels, alpha=self.alpha, planar=int(self.planes > 1),
+                        mirror=self.mirror)
 
 
 def _tiff_values(data: bytes, order: str, big: bool, entry: Tuple[int, int, int]) -> List[int]:
@@ -1884,6 +1912,97 @@ def _tiff_values(data: bytes, order: str, big: bool, entry: Tuple[int, int, int]
     if at + size > len(data):
         raise ValueError("corrupt TIFF: a field's values run past the data")
     return list(struct.unpack_from(order + _TIFF_TYPES[typ] * count, data, at))
+
+
+_TIFF_FLOAT_TYPES = {5: "II", 10: "ii", 11: "f", 12: "d"}  # RATIONAL, SRATIONAL, FLOAT, DOUBLE
+
+
+def _tiff_floats(data: bytes, order: str, big: bool, entry: Tuple[int, int, int]) -> List[np.float32]:
+    """A RATIONAL, SRATIONAL, FLOAT or DOUBLE field as libtiff reads it into floats: a
+    rational as float32(numerator) / float32(denominator), 0 for a zero denominator."""
+    typ, count, field = entry
+    if typ not in _TIFF_FLOAT_TYPES or count > len(data):
+        raise ValueError(f"corrupt TIFF: a field of type {typ} and count {count} where floats belong")
+    size = struct.calcsize(_TIFF_FLOAT_TYPES[typ]) * count
+    at = field if size <= (8 if big else 4) else struct.unpack_from(order + ("Q" if big else "I"), data, field)[0]
+    if at + size > len(data):
+        raise ValueError("corrupt TIFF: a field's values run past the data")
+    v = struct.unpack_from(order + _TIFF_FLOAT_TYPES[typ] * count, data, at)
+    if typ in (5, 10):
+        return [np.float32(n) / np.float32(d) if d else np.float32(0) for n, d in zip(v[::2], v[1::2])]
+    return [np.float32(x) for x in v]
+
+
+# tif_aux.c's defaults: CCIR 601-1 luma; a YCbCr image's ReferenceBlackWhite; CIE D50
+TIFF_LUMA = (np.float32(0.299), np.float32(0.587), np.float32(0.114))
+TIFF_YCBCR_REFERENCE = tuple(np.float32(v) for v in (0, 255, 128, 255, 128, 255))
+_D50 = (np.float32(96.4250), np.float32(100.0), np.float32(82.4680))
+TIFF_D50_WHITE = (_D50[0] / (_D50[0] + _D50[1] + _D50[2]), _D50[1] / (_D50[0] + _D50[1] + _D50[2]))
+YCBCR_TABLE_INTS = 5 * 256
+# tif_getimage.c display_sRGB: the XYZ -> luminance matrix, light output for reference
+# white, pixel values for it, residual light for black, the guns' gamma
+_SRGB_MATRIX = ((3.2410, -1.5374, -0.4986), (-0.9692, 1.8760, 0.0416), (0.0556, -0.2040, 1.0570))
+_SRGB_YC, _SRGB_VRW, _SRGB_Y0, _SRGB_GAMMA = 100.0, 255, 1.0, 2.4
+LAB_RANGE = 1500  # tif_color.h CIELABTORGB_TABLE_RANGE
+LAB_HEADER = 24  # floats before the three tables: X0, Y0, Z0, then a gun's matrix row, Y0, YC, step, Vrw each
+LAB_TABLE_INTS = LAB_HEADER + 3 * (LAB_RANGE + 1)
+
+
+def _fix(x: np.float32) -> int:
+    """tif_color.c FIX: (int32_t)(x * (1L << 16) + 0.5), the product in float."""
+    return int(np.float64(np.float32(x) * np.float32(65536)) + 0.5)
+
+
+def _clampw(v: np.float32, lo: float, hi: float) -> np.float32:
+    return np.float32(lo) if v < np.float32(lo) else np.float32(hi) if v > np.float32(hi) else v
+
+
+def _code2v(c: int, rb: np.float32, rw: np.float32, cr: int) -> np.float32:
+    """tif_color.c Code2V in float: (c - (int32)RB) * CR / (RW - RB, 1 where that is 0)."""
+    den = np.float32(rw - rb)
+    return np.float32(np.float32(np.float32(c - int(rb)) * np.float32(cr)) / (den if den != 0 else np.float32(1)))
+
+
+def ycbcr_tables(luma: Sequence[np.float32], reference: Sequence[np.float32]) -> np.ndarray:
+    """TIFFYCbCrToRGBInit's tables, step by step in its float and integer arithmetic: int32
+    (5, 256) Cr_r, Cb_b, Cr_g, Cb_g and Y, as TIFFYCbCrtoRGB indexes them."""
+    red, green, blue = (np.float32(v) for v in luma)
+    rbw = [np.float32(v) for v in reference]
+    f1 = np.float32(2) - np.float32(2) * red
+    d1 = _fix(min(max(f1, np.float32(0)), np.float32(2)))
+    f2 = np.float32(red * f1) / green
+    d2 = -_fix(min(max(f2, np.float32(0)), np.float32(2)))
+    f3 = np.float32(2) - np.float32(2) * blue
+    d3 = _fix(min(max(f3, np.float32(0)), np.float32(2)))
+    f4 = np.float32(blue * f3) / green
+    d4 = -_fix(min(max(f4, np.float32(0)), np.float32(2)))
+    t = np.zeros((5, 256), np.int64)
+    half = np.float32(128)
+    for i in range(256):
+        cr = int(_clampw(_code2v(i - 128, rbw[4] - half, rbw[5] - half, 127), -4096.0, 4096.0))
+        cb = int(_clampw(_code2v(i - 128, rbw[2] - half, rbw[3] - half, 127), -4096.0, 4096.0))
+        t[:, i] = ((d1 * cr + 32768) >> 16, (d3 * cb + 32768) >> 16, d2 * cr, d4 * cb + 32768,
+                   int(_clampw(_code2v(i, rbw[0], rbw[1], 255), -4096.0, 4096.0)))
+    return t.astype(np.int32)
+
+
+def lab_tables(white: Sequence[np.float32]) -> np.ndarray:
+    """initCIELabConversion and TIFFCIELabToRGBInit for libtiff's sRGB display, in float:
+    float32 (LAB_TABLE_INTS,) [X0, Y0, Z0 of the reference white; for each gun its matrix
+    row, residual light for black, light for reference white, table step and pixel value
+    for reference white; then each gun's LAB_RANGE + 1 entries of Yr2r, Yg2g, Yb2b]."""
+    w0, w1 = np.float32(white[0]), np.float32(white[1])
+    head = [np.float32(w0 / w1) * np.float32(100), np.float32(100),
+            np.float32(np.float32(np.float32(1) - w0) - w1) / w1 * np.float32(100)]
+    tables = []
+    for row in _SRGB_MATRIX:
+        step = np.float32(np.float32(_SRGB_YC) - np.float32(_SRGB_Y0)) / np.float32(LAB_RANGE)
+        head += [*(np.float32(m) for m in row), np.float32(_SRGB_Y0), np.float32(_SRGB_YC), step,
+                 np.float32(_SRGB_VRW)]
+        gamma = 1.0 / np.float64(np.float32(_SRGB_GAMMA))
+        tables.append([np.float32(_SRGB_VRW) * np.float32(np.power(i / LAB_RANGE, gamma))
+                       for i in range(LAB_RANGE + 1)])
+    return np.asarray(head + [v for t in tables for v in t], np.float32)
 
 
 _BIT_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))  # FillOrder 2: each byte's bits reversed
@@ -1945,14 +2064,27 @@ def _tile_pitch(fmt: int, bits: int, spp: int, planar: int, tile_width: int, sho
     return shown * spp * bits // 8 + hidden
 
 
+def _ycbcr_units(cols: int, sub: Tuple[int, int]) -> Tuple[int, int]:
+    """(bytes of a row of YCbCr data units, bytes of a scanline: TIFFScanlineSize's share
+    of a unit row) across `cols` pixels of 8-bit contiguous samples."""
+    hs, vs = sub
+    unit_row = -(-cols // hs) * (hs * vs + 2)
+    return unit_row, unit_row // vs
+
+
 def _tiff_layout(tags: dict, get, one, data: bytes, height: int, width: int, spp: int, bits: int, planar: int,
-                 compression: int, read_planes: List[int], fmt: int) -> Tuple[List[TiffChunk], int]:
-    """The chunks of the planes read, and the bytes of an image row of a plane. ValueError
-    where libtiff fails to read the directory or cv2's first read of a plane's chunk."""
+                 compression: int, read_planes: List[int], fmt: int, sub: Tuple[int, int] = (1, 1)
+                 ) -> Tuple[List[TiffChunk], Tuple[int, int]]:
+    """The chunks of the planes read (a later plane's unreadable chunk kept as `missing`),
+    and the rows and pixels a chunk covers.
+    ValueError where libtiff fails to read the directory or cv2's first read of a plane's
+    chunk. `sub`: a YCbCr image's subsampling (its contiguous samples come in data units
+    of sub[0] x sub[1] Y samples, then Cb and Cr)."""
     samples = spp if planar == 1 else 1
     stride = -(-width * samples * bits // 8)
     nplanes = spp if planar == 2 else 1
     tiled = 322 in tags or 323 in tags
+    units = fmt == TIFF_YCBCR_FORMAT and planar == 1
     if tiled:
         tw, th = one(322, 0), one(323, 0)
         if tw < 1 or th < 1:
@@ -1966,10 +2098,19 @@ def _tiff_layout(tags: dict, get, one, data: bytes, height: int, width: int, spp
             raise UnsupportedImage(f"uncompressed tiled TIFF of 4 samples a pixel ({_READ})")
         boxes = [(y, x, th, tw) for y in range(0, height, th) for x in range(0, width, tw)]
         off_tag, count_tag = 324, 325
+        chunk_hw = (th, tw)
     else:
         rps = min(one(278, 2 ** 32 - 1) or height, height)
         boxes = [(y, 0, min(rps, height - y), width) for y in range(0, height, rps)]
         off_tag, count_tag = 273, 279
+        chunk_hw = (rps, width)
+    scanline = stride  # TIFFScanlineSize, which libtiff's byte count estimates take
+    if units:
+        unit_row, scanline = _ycbcr_units(width, sub)
+        if _ycbcr_units(chunk_hw[1], sub)[0] % sub[1]:  # libtiff reads a strip's last bytes from memory it never wrote
+            raise UnsupportedImage(f"YCbCr TIFF of {sub[0]} x {sub[1]} data units whose row of units is no whole "
+                                   f"number of scanlines (cv2 reads bytes past what it decoded; {_READ})")
+        stride = unit_row
     per_plane = len(boxes)
     total = per_plane * nplanes
     offsets = get(off_tag)
@@ -1982,32 +2123,49 @@ def _tiff_layout(tags: dict, get, one, data: bytes, height: int, width: int, spp
     offsets = list(offsets[:total]) + [0] * (total - len(offsets))
     counts = list((counts or [0])[:total]) + [0] * (total - len(counts or [0]))
     if total == 1 and not tiled:  # libtiff estimates a single strip's bogus byte count
-        need = stride * height
+        need = scanline * height
         c, o = counts[0], offsets[0]
         if (c == 0 and o != 0) or count_tag not in tags or (compression == TIFF_NONE and (
                 (o <= len(data) and c > len(data) - o) or c < need)):
             counts[0] = need if compression == TIFF_NONE else max(0, len(data) - o)
     elif (one(284, 1) == 1 and not tiled and total > 2 and compression == TIFF_NONE and counts[0] != counts[1]
           and counts[0] and counts[1]):  # and, uncompressed, strips whose first two counts differ
-        counts = [stride * (height // total)] * total
+        counts = [scanline * (height // total)] * total
     reverse = one(266, 1) == 2 and compression != TIFF_JPEG  # libtiff's JPEG codec sets TIFF_NOBITREV
     chunks = []
     for plane in read_planes:
         for i, (y0, x0, rows, cols) in enumerate(boxes):
             k = plane * per_plane + i
             o, c = offsets[k], counts[k]
+            placed_rows = min(rows, height - y0)
             if c == 0 or o + c > len(data):
                 if plane == read_planes[0]:
                     raise ValueError("corrupt TIFF: a chunk's bytes lie past the data")
-                continue  # libtiff reads the later planes without checking: the plane stays zero
+                # libtiff reads the later planes without checking: the chunk reads as zero
+                chunks.append(TiffChunk(b"", 0, 0, cols, y0, 0, plane, 0, 0, 0, b"", False, missing=True))
+                continue
             raw = data[o:o + c]
+            if units:  # rows of data units, read a unit row at a time
+                unit_row, scanline = _ycbcr_units(cols, sub)
+                shown = min(cols, width - x0)
+                pitch = unit_row if shown == cols else (-(-shown // sub[0]) * (sub[0] * sub[1] + 2) + (cols - shown)
+                                                        // sub[0] * (10 if sub == (4, 4) else sub[0] * sub[1] + 2))
+                # putcontig8bitYCbCr44tile skips a cut tile's hidden units as 10 bytes each. The
+                # predictor walks rows of TIFFScanlineSize (a unit row / vs) or, in a tile, of
+                # TIFFTileRowSize (which ignores the subsampling), 3 samples a pixel; where
+                # the chunk is no whole number of them (or a row no whole number of pixels)
+                # horAcc8 fails and the chunk reads as decoded: rows of no pixels here
+                size, line = -(-rows // sub[1]) * unit_row, cols * 3 if tiled else scanline
+                walks = size % line == 0 and line % 3 == 0
+                chunks.append(TiffChunk(raw, size // line if walks else 1, line if walks else size,
+                                        line // 3 if walks else 0, y0, 0, plane, placed_rows, unit_row, pitch))
+                continue
             row_bytes = -(-cols * samples * bits // 8)
-            placed_rows = min(rows, height - y0)
             byte0 = x0 * samples * bits // 8
             pitch = row_bytes if x0 + cols <= width else _tile_pitch(fmt, bits, spp, planar, cols, width - x0)
             chunks.append(TiffChunk(raw.translate(_BIT_REVERSED) if reverse else raw, rows, row_bytes, cols, y0,
                                     byte0, plane, placed_rows, min(row_bytes, stride - byte0), pitch))
-    return chunks, stride
+    return chunks, chunk_hw
 
 
 def _tiff_directory(data: bytes) -> Tuple[str, bool, dict]:
@@ -2057,7 +2215,7 @@ def _tiff_jpeg_chunk(raw: bytes, tables: bytes, rows: int, cols: int, spp: int,
     head = tables[:-2] if tables[-2:] == b"\xff\xd9" else tables
     if tables and head[:2] != b"\xff\xd8":
         raise ValueError("corrupt TIFF: JPEGTables that do not start with SOI (cv2 returns None)")
-    im = parse_jpeg((head + raw[2:] if tables else raw) + b"\xff\xd9")
+    im = parse_jpeg((head + raw[2:] if tables else raw) + b"\xff\xd9", raw=not ycbcr)
     if len(im.comps) != spp:
         raise ValueError(f"corrupt TIFF: a JPEG chunk of {len(im.comps)} components for {spp} samples a pixel")
     if im.sampling != [ycbcr or (1, 1)] + [(1, 1)] * (spp - 1):
@@ -2065,7 +2223,7 @@ def _tiff_jpeg_chunk(raw: bytes, tables: bytes, rows: int, cols: int, spp: int,
                          f"{ycbcr or (1, 1)} then 1 x 1)")
     if im.width > cols or (im.height > rows and not (last_strip and im.width == cols)):
         raise ValueError(f"corrupt TIFF: a {im.width} x {im.height} JPEG in a {cols} x {rows} chunk")
-    im.space = SPACE_YCC if ycbcr else SPACE_GRAY if spp == 1 else SPACE_RGB
+    im.space = SPACE_YCC if ycbcr else SPACE_RAW
     im.orientation = 1  # the TIFF's own orientation applies, after the chunks are placed
     return im
 
@@ -2073,15 +2231,20 @@ def _tiff_jpeg_chunk(raw: bytes, tables: bytes, rows: int, cols: int, spp: int,
 def parse_tiff(data: bytes) -> TiffImage:
     """A TIFF's or BigTIFF's first directory as cv2 5.0 reads it with IMREAD_COLOR through
     libtiff's RGBA interface: strips or tiles, one plane or separate ones; uncompressed,
-    PackBits, Deflate (decoded here), LZW (K9) or JPEG (8-bit gray, palette, RGB or YCbCr
-    of contiguous samples: each chunk a JPEG of the batch, through K1 and the fused K2 +
-    K3); a compression code no codec claims as zero samples; 1-, 4-, 8- or 16-bit
-    samples; gray (MinIsBlack, MinIsWhite), RGB, palette and CMYK, with or without extra
-    samples (an unassociated alpha premultiplies, as libtiff does); the horizontal
-    predictor; the Orientation tag as cv2 applies it. ValueError where cv2 returns None
-    (tiff_compression_outcome's "none" codecs among them); UnsupportedImage for what cv2
-    reads and this decoder does not (its "lacks" codecs, uncompressed YCbCr, CIELab,
-    uncompressed tiles of 4 samples, JPEG-in-TIFF of other samples, old-style LZW)."""
+    PackBits, Deflate (decoded here), LZW (K9) or JPEG (8-bit samples of any photometric
+    below, one plane or separate ones: each chunk a JPEG of the batch, through K1 and the
+    fused K2 + K3, its components unconverted but for YCbCr in one plane, which libjpeg
+    converts to RGB); a compression code no codec claims as zero samples; 1-, 4-, 8- or
+    16-bit samples; gray (MinIsBlack, MinIsWhite), RGB, palette and CMYK, with or without
+    extra samples (an unassociated alpha premultiplies, as libtiff does), 8-bit YCbCr
+    (contiguous data units at the subsamplings libtiff's put routines take, or separate
+    planes at 1 x 1; YCbCrCoefficients and ReferenceBlackWhite or their defaults) and 8-
+    or 16-bit CIELab (WhitePoint or D50); the horizontal predictor; the Orientation tag as
+    cv2 applies it. ValueError where cv2 returns None (tiff_compression_outcome's "none"
+    codecs among them, ICCLab, ITULab, YCbCr or CIELab samples no put routine takes);
+    UnsupportedImage for what cv2 reads and this decoder does not (its "lacks" codecs,
+    YCbCr of 4 x 4 units no whole number of scanlines, uncompressed tiles of 4 samples,
+    12-bit JPEG-in-TIFF, old-style LZW)."""
     order, big, tags = _tiff_directory(data)
 
     def get(tag, default=None):
@@ -2121,22 +2284,19 @@ def parse_tiff(data: bytes) -> TiffImage:
         raise ValueError(f"TIFF with {codec_name} compression of these samples (cv2 returns None)")
     if outcome == "lacks":
         raise UnsupportedImage(f"TIFF with {codec_name} compression ({_READ})")
-    if photometric == 8 or (photometric == 6 and not jpeg):
-        raise UnsupportedImage(f"TIFF of photometric {'CIELab' if photometric == 8 else 'YCbCr'} ({_READ})")
-    ycbcr = None
-    if jpeg:
-        contig = one(284, 1) == 1 or spp == 1
-        if not (contig and bits == 8 and 338 not in tags and
-                ((spp == 1 and photometric in (0, 1, 3)) or (spp == 3 and photometric in (2, 6)))):
-            raise UnsupportedImage(f"JPEG-in-TIFF of {spp} {bits}-bit samples a pixel, photometric {photometric}"
-                                   f"{'' if contig else ', separate planes'} ({_READ})")
-        if photometric == 6:  # the RGBA interface has libjpeg convert to RGB (JPEGCOLORMODE_RGB)
-            sub = get(530, [2, 2])
-            ycbcr, photometric = (sub[0], sub[1] if len(sub) > 1 else 2), 2
     planar = one(284, 1)
     if planar not in (1, 2):
         raise ValueError(f"TIFF with PlanarConfiguration {planar}")
     planar = planar if spp > 1 else 1
+    ycbcr = None
+    if jpeg:
+        if photometric == 6 and planar == 1:  # the RGBA interface has libjpeg convert to RGB (JPEGCOLORMODE_RGB)
+            if spp != 3:
+                raise ValueError(f"JPEG-in-TIFF of YCbCr in {spp} samples (libjpeg converts 3; cv2 returns None)")
+            sub = get(530, [2, 2])
+            ycbcr, photometric = (sub[0], sub[1] if len(sub) > 1 else 2), 2
+        elif photometric not in (0, 1, 2, 3, 5, 6, 8):
+            raise ValueError(f"TIFF of photometric {photometric}")
     extras = get(338, [])
     if len(extras) > spp or any(v > 2 for v in extras):
         raise ValueError("TIFF with ExtraSamples libtiff refuses")
@@ -2145,7 +2305,32 @@ def parse_tiff(data: bytes) -> TiffImage:
     palette = _palette()
     fmt, channels, alpha_sample, read_planes = TIFF_RGB_FORMAT, 3, -1, [0]
     gray = photometric in (0, 1)
-    if planar == 1:
+    sub, tables = (1, 1), None
+    if photometric == 6:  # tif_getimage.c: 8-bit YCbCr of 3 samples, the subsamplings it has put routines for
+        sub = get(530, [2, 2])
+        sub = (sub[0], sub[1] if len(sub) > 1 else 2)
+        if spp != 3 or bits != 8 or sub not in ((1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)) or (
+                planar == 2 and sub != (1, 1)):
+            raise ValueError(f"YCbCr TIFF of {spp} {bits}-bit samples, subsampling {sub[0]} x {sub[1]}"
+                             f"{', separate planes' if planar == 2 else ''} (no put routine: cv2 returns None)")
+        luma = [np.float32(v) for v in (_tiff_floats(data, order, big, tags[529]) if 529 in tags else ())]
+        luma = tuple(luma) if len(luma) >= 3 else TIFF_LUMA
+        reference = [np.float32(v) for v in (_tiff_floats(data, order, big, tags[532]) if 532 in tags else ())]
+        reference = tuple(reference) if len(reference) >= 6 else TIFF_YCBCR_REFERENCE
+        if any(np.isnan(luma[:3])) or abs(luma[1]) < 1e-7:
+            raise ValueError("YCbCr TIFF of invalid YCbCrCoefficients (cv2 returns None)")
+        fmt, tables = TIFF_YCBCR_FORMAT, ("ycbcr", luma[:3], reference[:6])
+        read_planes = [0, 1, 2] if planar == 2 else [0]
+    elif photometric == 8:  # tif_getimage.c: CIELab of 3 samples (no extras), 8 or 16 bits, one plane
+        if spp != 3 or colour != 3 or bits not in (8, 16) or planar != 1:
+            raise ValueError(f"CIELab TIFF of {spp} {bits}-bit samples{', separate planes' if planar == 2 else ''} "
+                             f"(cv2 returns None)")
+        white = [np.float32(v) for v in (_tiff_floats(data, order, big, tags[318]) if 318 in tags else ())]
+        white = tuple(white[:2]) if len(white) >= 2 else TIFF_D50_WHITE
+        if white[1] == 0:
+            raise ValueError("CIELab TIFF of WhitePoint y 0 (cv2 returns None)")
+        fmt, tables = TIFF_LAB_FORMAT, ("lab", white)
+    elif planar == 1:
         if photometric in (0, 1, 3) and spp != 1 and bits < 8:
             raise ValueError("TIFF of contiguous samples under 8 bits with more than one a pixel")
         if gray:
@@ -2207,12 +2392,15 @@ def parse_tiff(data: bytes) -> TiffImage:
         # libtiff mirrors each tile it reads where the orientation flips columns, and cv2
         # then turns the image by the orientation without that flip
         mirror, orientation = one(322, 0), {2: 1, 3: 4, 6: 7, 7: 6}[orientation]
-    chunks, stride = _tiff_layout(tags, get, one, data, height, width, spp, bits, planar, compression, read_planes,
-                                  fmt)
+    chunks, chunk_hw = _tiff_layout(tags, get, one, data, height, width, spp, bits, planar, compression,
+                                            read_planes, fmt, sub)
     tiled = 322 in tags or 323 in tags
-    tables = _tiff_bytes(data, order, big, tags[347]) if jpeg and 347 in tags else b""
+    tables_347 = _tiff_bytes(data, order, big, tags[347]) if jpeg and 347 in tags else b""
+    samples = spp if planar == 1 else 1
     for c in chunks:
-        size = c.rows * c.row_bytes
+        if c.missing:
+            continue
+        size = c.size
         if compression == TIFF_NONE:
             c.ok = len(c.raw) >= size
             c.decoded = c.raw[:size] if c.ok else bytes(size)
@@ -2226,71 +2414,214 @@ def parse_tiff(data: bytes) -> TiffImage:
         elif compression in (TIFF_DEFLATE, TIFF_ADOBE_DEFLATE):
             c.decoded, c.ok = inflate(c.raw, size)
         elif jpeg:
-            c.jpeg = _tiff_jpeg_chunk(c.raw, tables, c.rows, c.width, spp, ycbcr,
+            c.jpeg = _tiff_jpeg_chunk(c.raw, tables_347, c.rows, c.width, samples, ycbcr,
                                       last_strip=not tiled and c.y0 + c.rows >= height)
+            frame_w = c.jpeg.width
+            c.placed_rows = min(c.placed_rows, c.jpeg.height)
+            c.placed_bytes = min(c.placed_bytes, frame_w * samples)
+            c.pitch = frame_w * samples if c.pitch == c.row_bytes or frame_w != c.width else c.pitch
         else:  # no codec claims the code: libtiff decodes nothing
             c.decoded, c.ok = bytes(size), False
-    return TiffImage(height, width, orientation, bits, spp if planar == 1 else 1, max(read_planes) + 1, stride,
-                     predictor, bits == 16 and order == ">", fmt, channels, alpha_sample, palette, chunks, mirror)
+    return TiffImage(height, width, orientation, bits, samples, max(read_planes) + 1, predictor,
+                     bits == 16 and order == ">", fmt, channels, alpha_sample, palette, chunks, mirror, chunk_hw, sub,
+                     tables)
+
+
+# ---------------------------------------------------------------------------- K8's batch
+# One image as K8 reads it (csrc/raw_image.cu enum Raw): [byte of its RGB in the call's
+# output, height, width (as decoded), format (RAW_*, TIFF_*_FORMAT), then for the raw
+# formats the byte of its first output row in the call's byte buffer and the signed
+# bytes from one row to the next (a bottom-up file steps backwards), for a TIFF its first
+# chunk in the chunk table and the rows a chunk covers; samples a pixel (RAW_TEXT,
+# RAW_FLOAT, a TIFF's decoded rows), maxval (RAW_TEXT; a TIFF's bits a sample), 1 for
+# big-endian floats, the window the rows cover (first row, first column, height, width;
+# palette entry 256 outside it: a GIF frame smaller than its screen), the orientation
+# (1-8) the output takes, a TIFF's colour samples read (1: gray planes, R = G = B), the
+# sample its unassociated alpha premultiplies by (-1: none), 1 for separate planes, the
+# width of the tiles whose columns are read mirrored (0: none), the byte of its 257 RGB
+# palette entries in the byte buffer, the PFM scale (float32 bits), a TIFF's chunks a row
+# of chunks, pixels a chunk covers, chunks a plane, the int of its YCbCr or CIELab tables
+# in the descriptor ints (-1: none), its YCbCr subsampling (horizontal, vertical), its
+# first CTA and CTAs a row of RAW_TILE, the output's height and width]. Every field is
+# the host's: the kernel derives none of them.
+RAW_INTS = 32
+(R_OUT, R_HEIGHT, R_WIDTH, R_FMT, R_OFFSET, R_STRIDE, R_CHANNELS, R_MAXVAL, R_BIG_ENDIAN, R_TOP, R_LEFT, R_WIN_H,
+ R_WIN_W, R_ORIENTATION, R_COLOUR, R_ALPHA, R_PLANAR, R_MIRROR, R_PALETTE, R_SCALE, R_ACROSS, R_CHUNK_W,
+ R_PER_PLANE, R_TABLE, R_HS, R_VS, R_TILE, R_TILES_X, R_OUT_H, R_OUT_W) = range(30)
+RAW_TILE = (8, 128)  # csrc/raw_image.cu kTileRows x kTileCols output pixels a CTA: a warp a row
+K10_WORK_INTS = 2  # one K10 chunk: its chunk, K10's rows (a warp each) before it
+# and after the list, each K10 row's chunk and its row there (a warp finds its row in one load)
+K10_ROW_INTS = 2
 
 
 @dataclasses.dataclass
-class TiffBatch:
-    """A batch of TIFFs as K9's TIFF streams and K10 read them (CPU tensors until `to`):
-    `decoded`, every chunk's decoded rows but the JPEG ones' (the host's; zero where K9
-    writes an LZW chunk),
-    `chunks` (C, TIFF_CHUNK_INTS), each image's offset in the image buffer, and the LZW
-    streams: (stored bytes, offset in `decoded`, bytes to fill) each."""
+class RawBatch:
+    """One decode call's GIFs, TIFFs and raw images (BMP, PxM, PAM, Sun raster, PFM, HDR)
+    as K9, K10 and K8 read them. `host` is the one upload: the descriptor ints (the image
+    table at int 0, the chunk table at `chunk_at`, K10's chunks at `work_at` and each of
+    its rows' chunk and row there at `work_at + works * K10_WORK_INTS`, the YCbCr
+    and CIELab tables) then the bytes (palettes, the raw images' rows, the TIFFs'
+    host-decoded chunks). The device buffer holds `host`, then K9's output (`lzw`'s: the
+    GIF frames' indices, then the TIFF LZW chunks, zero before K9 writes them) from
+    `lzw_at`."""
 
-    decoded: torch.Tensor
-    chunks: torch.Tensor
-    image_offsets: List[int]
-    image_bytes: int
-    lzw: List[Tuple[bytes, int, int]]
-    # the bytes of the JPEG chunks' RGB frames (tiff_jpeg_chunks' order, back to back),
-    # which K10 reads from the JPEG kernels' output
-    jpeg_bytes: int = 0
+    host: np.ndarray  # uint8
+    images: int
+    chunk_at: int
+    work_at: int
+    works: int
+    k10_rows: int
+    tiles: int
+    out_bytes: int
+    out: List[Tuple[int, int, int]]  # each image's (byte of its RGB, height, width)
+    lzw: GifBatch
+    lzw_at: int
+    gifs: int  # the first `gifs` images are GIFs, the first `gifs` K9 streams their frames
 
-    def to(self, device: torch.device) -> "TiffBatch":
-        return dataclasses.replace(self, decoded=self.decoded.to(device, non_blocking=True),
-                                   chunks=self.chunks.to(device, non_blocking=True))
+    @property
+    def total(self) -> int:
+        return self.lzw_at + self.lzw.total_indices
+
+    @property
+    def desc(self) -> np.ndarray:
+        """The descriptor ints."""
+        return self.host[:self.host.size // 4 * 4].view(np.int32)
+
+    @property
+    def image_rows(self) -> np.ndarray:
+        return self.desc[:self.images * RAW_INTS].reshape(self.images, RAW_INTS)
+
+    @property
+    def chunks(self) -> np.ndarray:
+        n = (self.work_at - self.chunk_at) // TIFF_CHUNK_INTS
+        return self.desc[self.chunk_at:self.work_at].reshape(n, TIFF_CHUNK_INTS)
 
 
-def tiff_batch(images: Sequence[TiffImage]) -> TiffBatch:
-    pieces, rows, lzw, offsets = [], [], [], []
-    at = image_at = jpeg_at = 0
-    for im in images:
-        offsets.append(image_at)
-        for c in im.chunks:
-            dst = image_at + (c.plane * im.height + c.y0) * im.stride + c.byte0
-            if c.jpeg is not None:
-                frame_h, frame_w = c.jpeg.height, c.jpeg.width
-                rows.append([jpeg_at, min(c.placed_rows, frame_h), frame_w * 3, dst, im.stride,
-                             min(c.placed_bytes, frame_w * im.samples), 0, im.samples, 0, -1, frame_w, frame_w * 3,
-                             3 // im.samples])
-                jpeg_at += frame_h * frame_w * 3
-                continue
-            size = c.rows * c.row_bytes
-            stream = -1
-            if c.decoded is None:
-                stream = len(lzw)
-                lzw.append((c.raw, at, size))
-            pieces.append(c.decoded if c.decoded is not None else bytes(size))
-            ok = c.ok
-            rows.append([at, c.placed_rows, c.row_bytes, dst, im.stride, c.placed_bytes, im.predictor if ok else 0,
-                         im.samples, int(im.swab and ok), stream, c.width, c.pitch, 0])
-            at += size
-        image_at += im.nbytes
-    if max(at, image_at, jpeg_at) >= 2 ** 31:
-        raise ValueError("TIFF batch too large for one launch")
-    decoded = np.frombuffer(b"".join(pieces) or b"\0", np.uint8).copy()
-    return TiffBatch(torch.from_numpy(decoded), torch.from_numpy(np.asarray(rows, np.int64).astype(np.int32)
-                                                                 .reshape(-1, TIFF_CHUNK_INTS)),
-                     offsets, image_at, lzw, jpeg_at)
+def raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[TiffImage], raws: Sequence[RawImage]) -> RawBatch:
+    """Lay out a decode call's GIFs, TIFFs and raw images for K9, K10 and K8 (host work,
+    numpy): one K8 launch expands them all, the GIFs first, then the TIFFs, then the rest.
+    A TIFF's JPEG chunks are read from the JPEG kernels' output (tiff_jpeg_chunks' order,
+    back to back, `pixel_bytes` each a pixel)."""
+    images = [(g.raw(), "gif", g) for g in gifs] + [(t.raw(), "tiff", t) for t in tiffs] + \
+        [(r, "raw", None) for r in raws]
+    frames, lzw, at = [], [], 0
+    for g in gifs:
+        frames.append(at)
+        at += g.frame_width * g.frame_height
+    n_chunks = sum(len(t.chunks) for t in tiffs)
+    chunk_rows: List[List[int]] = []  # TIFF_CHUNK_INTS a chunk
+    # descriptor ints: the images, the tables (each distinct one once), the chunks, K10's chunks
+    table_at = len(images) * RAW_INTS
+    tables: Dict[tuple, int] = {}
+    table_parts: List[np.ndarray] = []
+    for t in tiffs:
+        if t.tables is not None and t.tables not in tables:
+            tables[t.tables] = table_at + sum(p.size for p in table_parts)
+            table_parts.append(ycbcr_tables(*t.tables[1:]).reshape(-1) if t.tables[0] == "ycbcr" else
+                               lab_tables(t.tables[1]).view(np.int32))
+    chunk_at = table_at + sum(p.size for p in table_parts)
+    work_at = chunk_at + n_chunks * TIFF_CHUNK_INTS
+    most_rows = sum(c.rows for t in tiffs for c in t.chunks)  # K10's rows at most
+    byte0 = -(-4 * (work_at + n_chunks * K10_WORK_INTS + most_rows * K10_ROW_INTS) // 16) * 16
+    pieces: List[Tuple[int, bytes]] = []
+    byte_at = byte0
+
+    def put(b: bytes) -> int:
+        nonlocal byte_at
+        at = byte_at
+        pieces.append((at, b))
+        byte_at += len(b)
+        return at
+
+    palettes: Dict[bytes, int] = {}
+
+    def palette(p: np.ndarray) -> int:
+        b = np.ascontiguousarray(p, np.uint8).tobytes()
+        if b not in palettes:
+            palettes[b] = put(b)
+        return palettes[b]
+
+    rows: List[List[int]] = []
+    host_chunks = []  # (chunk row, bytes): the TIFFs' host-decoded chunks, placed after the raw rows
+    jpeg_at, out_at, tile, lzw_bytes = 0, 0, 0, 0
+    for i, (raw, kind, src) in enumerate(images):
+        oh, ow = raw.out_hw
+        tiles_x = -(-ow // RAW_TILE[1])
+        r = [out_at, raw.height, raw.width, raw.fmt, 0, raw.stride, raw.channels, raw.maxval, raw.big_endian,
+             *(raw.window or (0, 0, raw.height, raw.width)), raw.orientation, raw.colour_channels, raw.alpha,
+             raw.planar, raw.mirror, palette(raw.palette), int(np.float32(raw.scale).view(np.int32)), 0, 0, 0, -1, 1,
+             1, tile, tiles_x, oh, ow, 0, 0]  # R_* order
+        rows.append(r)
+        out_at += -(-oh * ow * 3 // 16) * 16  # each image's RGB from a 16-byte boundary
+        tile += tiles_x * -(-oh // RAW_TILE[0])
+        if kind == "gif":
+            r[R_OFFSET] = frames[i]  # in K9's output, after the host bytes: fixed up below
+        elif kind == "raw":
+            r[R_OFFSET] = put(raw.data) + raw.offset
+        else:
+            t = src
+            r[R_OFFSET], r[R_ACROSS], r[R_CHUNK_W] = len(chunk_rows), t.across, t.chunk_hw[1]
+            r[R_PER_PLANE] = t.per_plane
+            r[R_HS], r[R_VS] = t.subsampling
+            if t.tables is not None:
+                r[R_TABLE] = tables[t.tables]
+            for c in t.chunks:  # [src, jpeg, pitch, rows held, bytes held, rows, row bytes, width, samples,
+                #                  predictor, swab, stream]
+                row = [0, 0, c.pitch, c.placed_rows, c.placed_bytes,
+                       c.placed_rows if t.fmt != TIFF_YCBCR_FORMAT else c.rows, c.row_bytes, c.width, t.samples, 0, 0,
+                       -1]
+                if c.jpeg is not None:
+                    row[C_SRC], row[C_JPEG] = jpeg_at, 1
+                    jpeg_at += c.jpeg.height * c.jpeg.width * pixel_bytes(c.jpeg.space, len(c.jpeg.comps))
+                elif not c.missing:
+                    if c.ok:
+                        row[C_PREDICTOR], row[C_SWAB] = t.predictor, int(t.swab)
+                    if c.decoded is None:  # K9 decodes it into its output after the frames (offset fixed up below)
+                        # K9's streams: the GIFs' first
+                        row[C_SRC], row[C_STREAM] = at + lzw_bytes, len(gifs) + len(lzw)
+                        lzw.append((c.raw, c.size))
+                        lzw_bytes += c.size
+                    else:
+                        host_chunks.append((len(chunk_rows), c.decoded))
+                chunk_rows.append(row)
+    for k, b in host_chunks:
+        chunk_rows[k][C_SRC] = put(b)
+    lzw_at = -(-byte_at // 16) * 16
+    for i, (_, kind, _) in enumerate(images):
+        if kind == "gif":
+            rows[i][R_OFFSET] += lzw_at
+    rows = np.asarray(rows, np.int64).reshape(-1, RAW_INTS)
+    chunk_rows = np.asarray(chunk_rows, np.int64).reshape(-1, TIFF_CHUNK_INTS)
+    chunk_rows[chunk_rows[:, C_STREAM] >= 0, C_SRC] += lzw_at
+    k10 = (chunk_rows[:, C_JPEG] == 0) & ((chunk_rows[:, C_PREDICTOR] > 0) | (chunk_rows[:, C_SWAB] > 0)) & (
+        chunk_rows[:, C_ROWS] > 0)
+    ids = np.flatnonzero(k10)
+    before = np.concatenate([[0], np.cumsum(chunk_rows[ids, C_ROWS])])
+    work = np.stack([ids, before[:-1]], 1) if ids.size else np.zeros((0, 2), np.int64)
+    batch_lzw = gif_batch(gifs, lzw)
+    if max(lzw_at + batch_lzw.total_indices, out_at, jpeg_at, tile) >= 2 ** 31:
+        raise ValueError("raw image batch too large for one launch")
+    host = np.empty(lzw_at, np.uint8)  # up to K9's output, no byte left unwritten: the pieces cover the rest
+    host[:byte0] = 0
+    host[byte_at:] = 0
+    desc = host[:byte0].view(np.int32)
+    desc[:table_at] = rows.reshape(-1)
+    if table_parts:
+        desc[table_at:chunk_at] = np.concatenate(table_parts)
+    desc[chunk_at:work_at] = chunk_rows.reshape(-1)
+    desc[work_at:work_at + work.size] = work.reshape(-1)
+    k10_rows = int(before[-1])
+    rows_of = np.diff(before)
+    desc[work_at + work.size:work_at + work.size + K10_ROW_INTS * k10_rows] = np.stack(
+        [np.repeat(ids, rows_of), np.arange(k10_rows) - np.repeat(before[:-1], rows_of)], 1).reshape(-1)
+    for at, b in pieces:
+        host[at:at + len(b)] = np.frombuffer(b, np.uint8)
+    return RawBatch(host, len(images), chunk_at, work_at, len(work), int(before[-1]), tile, out_at,
+                    [(int(r[R_OUT]), int(r[R_OUT_H]), int(r[R_OUT_W])) for r in rows], batch_lzw, lzw_at, len(gifs))
 
 
 def tiff_jpeg_chunks(images: Sequence[TiffImage]) -> List[JpegImage]:
-    """The JPEG chunks of a batch of TIFFs, in tiff_batch's order."""
+    """The JPEG chunks of a batch of TIFFs, in raw_batch's order."""
     return [c.jpeg for im in images for c in im.chunks if c.jpeg is not None]
 
 
@@ -2391,18 +2722,17 @@ def decode_images_with_warnings(blobs: Sequence[bytes], device: str | torch.devi
             batch = batch.to(device)
         coef, status = cuda_image.decode_entropy(batch)
         rgb = cuda_image.idct_color(coef, batch)
-        for (i, _), img in zip(jpegs, cuda_image.rgb_views(rgb, batch.out_shapes)):
+        for (i, _), img in zip(jpegs, cuda_image.rgb_views(rgb, batch.out_shapes[:len(jpegs)])):
             out[i] = img
         chunk_pixels = rgb[sum(h * w * 3 for h, w in batch.out_shapes[:len(jpegs)]):]
     if pngs:
         for (i, _), img in zip(pngs, cuda_image.decode_png_batch([p for _, p in pngs], device)):
             out[i] = img
-    if gifs or tiffs:
-        decoded = cuda_image.decode_lzw_batch([g for _, g in gifs], [t for _, t in tiffs], device, chunk_pixels)
-        for (i, _), img in zip(gifs + tiffs, decoded):
+    if gifs or tiffs or raws:
+        decoded = cuda_image.decode_raw_batch([g for _, g in gifs], [t for _, t in tiffs], [r for _, r in raws],
+                                              device, chunk_pixels)
+        for (i, _), img in zip(gifs + tiffs + raws, decoded):
             out[i] = img
-    for i, raw in raws:
-        out[i] = cuda_image.decode_raw(raw, device)
     return out, status
 
 

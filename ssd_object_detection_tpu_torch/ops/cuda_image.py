@@ -3,8 +3,8 @@ entropy decode of the scans that first send their coefficients, K2 + K3 fused:
 dequantise + IDCT, upsample + colour + orientation; csrc/jpeg_progressive.cu: K6 entropy
 decode of progressive refinement scans; csrc/jpeg_smooth.cu: K7 block smoothing), resize
 (csrc/resize.cu: K4), PNG (csrc/png_unfilter.cu: K5), GIF and TIFF LZW (csrc/gif_lzw.cu:
-K9), TIFF chunk assembly (csrc/tiff_assemble.cu: K10) and BMP, PxM, PAM, Sun raster, PFM,
-HDR and TIFF pixels and GIF palette indices (csrc/raw_image.cu: K8).
+K9), the TIFF predictor and byte swap (csrc/tiff_assemble.cu: K10) and BMP, PxM, PAM, Sun
+raster, PFM, HDR and TIFF pixels and GIF palette indices (csrc/raw_image.cu: K8).
 
 None replaces a Pallas kernel: the JAX package decodes and resizes with cv2 on the host
 (ssd_object_detection_tpu/data/pipeline.py:70-125, eval/serve.py:248-260 and :374-381).
@@ -35,9 +35,15 @@ What bounds them on an H100 (ops/cuda_image.py::bound_bytes gives the byte count
      then every pixel upsampled, converted and staged in the output's orientation, and
      written out a row at a time with 16-byte stores; the coefficients in and the RGB out
      bound it, with an estimate of its integer operations at the peak issue rate just under.
-  K7 and K8 are one thread per 8x8 block or per output pixel, integer but for K8's float
-     PFM and RGBE samples; the bytes they move bound them. K10 is a CTA a TIFF chunk, a
-     warp a row: the predictor's prefix sum by shuffles, then the rows copied into place.
+  K7 is one thread per 8x8 block; the bytes it moves bound it. K8 is one launch a decode
+     call (codec.raw_batch: the call's descriptors and bytes in one upload, read as they
+     are), a CTA a tile of 8 x 128 output pixels of one image, a warp a row, a lane every
+     32nd pixel (four a lane, their loads together), the row staged in shared memory and
+     stored 16 bytes a lane; a TIFF's
+     samples read straight from its chunks (YCbCr and CIELab by libtiff's tables, built on
+     the host). K10 is one launch a call where a chunk has a predictor or a byte swap, a
+     warp a row of every such chunk, in place: the predictor's prefix sum by shuffles. The
+     bytes they move bound both.
   K4 is one launch a batch of images, a CTA a tile of 128 x 8 output pixels of one
      image (its x table in shared memory), a warp an output row, a lane every 32nd pixel
      of it, the per-image arguments by value and each shape pair's plan cached on the card.
@@ -94,7 +100,7 @@ _SIGNATURES = {
         "ssd_jpeg_smooth": ([_P, _P, _P, _I, _I, _P, _P, _P, _P, _P], _I),
     },
     RAW_SOURCE: {
-        "ssd_raw_expand": ([_P, _L, _P, _I, _I, _P, ctypes.c_float, _P, _P], _I),
+        "ssd_raw_expand": ([_P, _P, _I, _I, _I, _P, _P], _I),
     },
     RESIZE_SOURCE: {
         "ssd_resize_batch": ([_I, _I, _P, _I, _I, _P], _I),
@@ -106,7 +112,7 @@ _SIGNATURES = {
         "ssd_gif_lzw": ([_P, _P, _I, _P, _P, _P, _P], _I),
     },
     TIFF_SOURCE: {
-        "ssd_tiff_assemble": ([_P, _P, _P, _I, _P, _P, _P], _I),
+        "ssd_tiff_assemble": ([_P, _I, _I, _I, _I, _P, _P], _I),
     },
 }
 
@@ -278,18 +284,19 @@ def decode_entropy(batch: JpegBatch, sync: Optional[torch.Tensor] = None) -> Tup
 # ---------------------------------------------------------------------------- K2 + K3
 def idct_color(coef: torch.Tensor, batch: JpegBatch) -> torch.Tensor:
     """K2 + K3, one fused kernel: the batch's int16 (blocks, 64) coefficients -> uint8
-    (total_pixels * 3,) RGB, each image at its pixel offset: dequantisation and the islow
+    (total_bytes,) RGB, each image at its byte offset (a SPACE_RAW image, a JPEG-in-TIFF
+    chunk, its components unconverted, a byte each a pixel): dequantisation and the islow
     IDCT, upsampling, colour conversion and the Exif orientation, a CTA a tile of the
     batch's tile table, the component planes in shared memory. Its plain version is
     plain_image.color(plain_image.idct(...))."""
     if _route(coef) == "cpu":
         planes = plain_image.idct(coef.numpy(), batch.qtables.numpy(), batch.comps.numpy())
-        return torch.from_numpy(plain_image.color(planes, batch.images.numpy(), batch.total_pixels))
+        return torch.from_numpy(plain_image.color(planes, batch.images.numpy(), batch.total_bytes))
     device = coef.device
     _check("coef", coef, torch.int16, device)
     for name in ("qtables", "images", "tiles"):
         _check(name, getattr(batch, name), torch.int32, device)
-    out = torch.empty((batch.total_pixels * 3,), dtype=torch.uint8, device=device)
+    out = torch.empty((batch.total_bytes,), dtype=torch.uint8, device=device)
     if batch.tiles.shape[0] == 0:
         return out
     lib = _library(JPEG_SOURCE)
@@ -554,102 +561,91 @@ def lzw_decode(batch: GifBatch, stats: Optional[torch.Tensor] = None, out: Optio
     return indices, status
 
 
-def decode_lzw_batch(gifs: List[GifImage], tiffs: List[codec.TiffImage], device: torch.device,
-                     jpeg_pixels: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
-    """Parsed GIFs and TIFFs -> uint8 (H, W, 3) RGB on `device`, the GIFs first: one K9
-    call for every GIF frame and TIFF LZW chunk of the batch, one K10 call for the TIFFs'
-    chunks, then K8 on each frame's indices and each TIFF's image buffer. `jpeg_pixels`:
-    the TIFFs' JPEG chunks as the JPEG kernels decoded them (1-D uint8, their RGB frames
-    back to back in codec.tiff_jpeg_chunks' order), which K10 places straight from there,
-    the rest of a chunk zero, as libtiff leaves a frame smaller than its chunk. Waits for
-    K9's status only where the batch holds GIFs, and raises ValueError where cv2's GIF
-    decoder returns None (a TIFF chunk that fails decodes in part, as libtiff leaves it,
-    on the device)."""
-    tiff = codec.tiff_batch(tiffs) if tiffs else None
-    host = codec.gif_batch(gifs, tiff)
-    cuda = device.type == "cuda"
-    lzw_out = torch.zeros((max(host.total_indices, 1),), dtype=torch.uint8, device=device)
-    if tiff is not None:
-        held = 0 if jpeg_pixels is None else jpeg_pixels.numel()
-        if held < tiff.jpeg_bytes:
-            raise ValueError(f"{held} bytes of decoded JPEG chunks for the batch's {tiff.jpeg_bytes}")
-        if cuda:
-            tiff = tiff.to(device)
-        lzw_out[host.frame_indices:host.total_indices].copy_(tiff.decoded, non_blocking=True)
+def decode_raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[codec.TiffImage], raws: Sequence[codec.RawImage],
+                     device: torch.device, jpeg_pixels: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
+    """Parsed GIFs, TIFFs and raw images (BMP, PxM, PAM, Sun raster, PFM, HDR) -> uint8
+    (H, W, 3) RGB views on `device`, in that order, through one upload (codec.raw_batch),
+    one K9 call for every GIF frame and TIFF LZW chunk (where there are any), one K10 call
+    for the TIFF chunks with a predictor or a byte swap (where there are any) and one K8
+    call for every image. `jpeg_pixels`: the TIFFs' JPEG chunks as the JPEG kernels decoded
+    them (1-D uint8, back to back in codec.tiff_jpeg_chunks' order), which K8 reads in
+    place. Waits for K9's status only where the batch holds GIFs, and raises ValueError
+    where cv2's GIF decoder returns None (a TIFF chunk that fails decodes in part, as
+    libtiff leaves it, on the device)."""
+    batch = codec.raw_batch(gifs, tiffs, raws)
+    held = 0 if jpeg_pixels is None else jpeg_pixels.numel()
+    need = sum(c.jpeg.height * c.jpeg.width * codec.pixel_bytes(c.jpeg.space, len(c.jpeg.comps))
+               for t in tiffs for c in t.chunks if c.jpeg is not None)
+    if held < need:
+        raise ValueError(f"{held} bytes of decoded JPEG chunks for the batch's {need}")
+    if not batch.images:
+        return []
+    buffer = upload(batch, device)
     status = None
-    if host.gifs.shape[0]:
-        indices, status = lzw_decode(host.to(device) if cuda else host, out=lzw_out)
-    if gifs:
-        for st in status[:len(gifs)].cpu().tolist():
+    if batch.lzw.gifs.shape[0]:
+        _, status = lzw_decode(batch.lzw.to(device) if device.type == "cuda" else batch.lzw,
+                               out=buffer[batch.lzw_at:])
+    if batch.gifs:
+        for st in status[:batch.gifs].cpu().tolist():
             if st != codec.GIF_OK:
                 raise ValueError(f"corrupt GIF: {codec.GIF_FAULTS[st]}")
-    if status is None:
-        status = torch.zeros((1,), dtype=torch.int32, device=device)
-    out = []
-    for gif, row in zip(gifs, host.gifs.tolist()):
-        frame = lzw_out[row[6]:row[6] + gif.frame_width * gif.frame_height]
-        out.append(_expand(gif.raw(), frame, device))
-    if tiff is not None:
-        images = tiff_assemble(lzw_out[host.frame_indices:host.total_indices], tiff.chunks, status[len(gifs):],
-                               tiff.image_bytes, jpeg_pixels)
-        for im, at in zip(tiffs, tiff.image_offsets):
-            out.append(_expand(im.raw(), images[at:at + im.nbytes], device))
-    return out
+    tiff_assemble(buffer, batch, status)
+    out = raw_expand(buffer, batch, jpeg_pixels)
+    return [out[at:at + h * w * 3].view(h, w, 3) for at, h, w in batch.out]
 
 
-def _expand(raw: codec.RawImage, data: torch.Tensor, device: torch.device) -> torch.Tensor:
-    tensors = [torch.from_numpy(raw.params()), torch.from_numpy(np.ascontiguousarray(raw.palette))]
-    if device.type == "cuda":
-        tensors = [t.to(device, non_blocking=True) for t in tensors]
-    return raw_expand(data, tensors[0], tensors[1], raw.scale, (raw.height, raw.width), raw.orientation)
+def upload(batch: codec.RawBatch, device: torch.device) -> torch.Tensor:
+    """The call's device buffer: `batch.host` in one copy, K9's TIFF chunks zeroed (K9
+    leaves a chunk's bytes past what decoded as they were)."""
+    buffer = torch.empty((max(batch.total, 1),), dtype=torch.uint8, device=device)
+    buffer[:batch.host.size].copy_(torch.from_numpy(batch.host), non_blocking=True)
+    if batch.lzw.tiff_bytes:
+        buffer[batch.lzw_at + batch.lzw.frame_indices:batch.total].zero_()
+    return buffer
 
 
 # ---------------------------------------------------------------------------- K10
-def tiff_assemble(decoded: torch.Tensor, chunks: torch.Tensor, status: torch.Tensor, image_bytes: int,
-                  jpeg: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K10: a TIFF batch's decoded chunks (codec.TIFF_CHUNK_INTS rows; `status`, K9's, for
-    the LZW ones) -> the uint8 (image_bytes,) image buffer: the horizontal predictor
-    undone, big-endian 16-bit samples swapped, each chunk in its rectangle; the JPEG
-    chunks read from `jpeg`, the JPEG kernels' RGB of them (None: they stay zero). One
-    launch, a CTA a chunk, a warp a row."""
-    if _route(decoded) == "cpu":
-        return torch.from_numpy(plain_image.tiff_assemble(decoded.numpy(), chunks.numpy(), status.numpy(),
-                                                          image_bytes, None if jpeg is None else jpeg.numpy()))
-    device = decoded.device
-    _check("decoded", decoded, torch.uint8, device)
-    _check("chunks", chunks, torch.int32, device)
-    _check("status", status, torch.int32, device)
-    if jpeg is not None:
-        _check("jpeg", jpeg, torch.uint8, device)
-    out = torch.zeros((max(image_bytes, 1),), dtype=torch.uint8, device=device)
-    if chunks.shape[0] == 0:
-        return out
+def tiff_assemble(buffer: torch.Tensor, batch: codec.RawBatch, status: Optional[torch.Tensor] = None
+                  ) -> torch.Tensor:
+    """K10, in place in a decode call's device `buffer` (`upload`'s): the horizontal
+    predictor undone and big-endian 16-bit samples swapped in each TIFF chunk that needs
+    it, a chunk whose K9 stream failed (`status`, K9's) left as it decoded. One launch, a
+    warp a row of every such chunk; none where no chunk of the call needs it."""
+    if _route(buffer) == "cpu":
+        plain_image.tiff_assemble(buffer.numpy(), batch.chunk_at, batch.work_at, batch.works,
+                                  np.zeros(0, np.int32) if status is None else status.numpy())
+        return buffer
+    device = buffer.device
+    _check("buffer", buffer, torch.uint8, device)
+    if status is not None:
+        _check("status", status, torch.int32, device)
+    if batch.works == 0:
+        return buffer
     lib = _library(TIFF_SOURCE)
-    err = lib.ssd_tiff_assemble(decoded.data_ptr(), None if jpeg is None else jpeg.data_ptr(), chunks.data_ptr(),
-                                chunks.shape[0], status.data_ptr(), out.data_ptr(), _stream(device))
-    _cuda_build.check_launch(lib, err, "TIFF assembly kernel launch")
+    err = lib.ssd_tiff_assemble(buffer.data_ptr(), batch.chunk_at, batch.work_at, batch.works, batch.k10_rows,
+                                None if status is None else status.data_ptr(), _stream(device))
+    _cuda_build.check_launch(lib, err, "TIFF predictor kernel launch")
     tiff_assemble.launches += 1
-    return out
+    return buffer
 
 
 # ---------------------------------------------------------------------------- K8
-def raw_expand(data: torch.Tensor, params: torch.Tensor, palette: torch.Tensor, scale: float,
-               shape: Tuple[int, int], orientation: int = 1) -> torch.Tensor:
-    """K8: a raw image's rows (codec.RawImage: uint8 `data`, int32 (RAW_INTS,) `params`,
-    uint8 (257, 3) RGB `palette`, the PFM `scale`, its (height, width) `shape`) -> uint8
-    RGB, (H, W, 3) turned by the orientation its params give (`orientation`: the same,
-    for the output's shape without reading params)."""
-    height, width = shape
-    if _route(data) == "cpu":
-        return torch.from_numpy(plain_image.raw_expand(data.numpy(), params.numpy(), palette.numpy(), scale))
-    device = data.device
-    _check("data", data, torch.uint8, device)
-    _check("params", params, torch.int32, device)
-    _check("palette", palette, torch.uint8, device)
-    out = torch.empty((*codec.oriented_hw(height, width, orientation), 3), dtype=torch.uint8, device=device)
+def raw_expand(buffer: torch.Tensor, batch: codec.RawBatch, jpeg: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8: every image of a decode call (`batch`; its device `buffer`, after K9 and K10;
+    `jpeg`, the JPEG kernels' output holding the TIFFs' JPEG chunks, None: they read as
+    zero) -> uint8 (batch.out_bytes,) RGB, each image turned by its orientation at its
+    byte offset (`batch.out`). One launch, a CTA a tile of codec.RAW_TILE output pixels."""
+    if _route(buffer) == "cpu":
+        return torch.from_numpy(plain_image.raw_expand(buffer.numpy(), batch.images, batch.chunk_at,
+                                                       None if jpeg is None else jpeg.numpy(), batch.out_bytes))
+    device = buffer.device
+    _check("buffer", buffer, torch.uint8, device)
+    if jpeg is not None:
+        _check("jpeg", jpeg, torch.uint8, device)
+    out = torch.empty((max(batch.out_bytes, 1),), dtype=torch.uint8, device=device)
     lib = _library(RAW_SOURCE)
-    err = lib.ssd_raw_expand(data.data_ptr(), data.numel(), params.data_ptr(), height, width, palette.data_ptr(),
-                             ctypes.c_float(scale), out.data_ptr(), _stream(device))
+    err = lib.ssd_raw_expand(buffer.data_ptr(), None if jpeg is None else jpeg.data_ptr(), batch.images,
+                             batch.chunk_at, batch.tiles, out.data_ptr(), _stream(device))
     _cuda_build.check_launch(lib, err, "raw image kernel launch")
     raw_expand.launches += 1
     return out
@@ -657,8 +653,7 @@ def raw_expand(data: torch.Tensor, params: torch.Tensor, palette: torch.Tensor, 
 
 def decode_raw(raw: codec.RawImage, device: torch.device) -> torch.Tensor:
     """A parsed BMP, PxM, PAM, Sun raster, PFM or HDR -> uint8 (H, W, 3) RGB on `device` through K8."""
-    data = torch.frombuffer(bytearray(raw.data) or bytearray(1), dtype=torch.uint8)
-    return _expand(raw, data.to(device, non_blocking=True) if device.type == "cuda" else data, device)
+    return decode_raw_batch([], [], [raw], device)[0]
 
 
 # ---------------------------------------------------------------------------- accounting
@@ -702,6 +697,6 @@ def bound_bytes(kernel: str, **shape) -> int:
         return shape["in_bytes"] + shape["pixels"] * 3
     if kernel == "lzw":  # the LZW data in, a palette index a pixel (a TIFF chunk's byte) out
         return shape["in_bytes"] + shape["pixels"]
-    if kernel == "tiff_assemble":  # the decoded chunks' placed rows in, the image buffers out
-        return 2 * shape["placed_bytes"]
+    if kernel == "tiff_assemble":  # the predicted or swapped chunks' rows read and written in place
+        return 2 * shape["chunk_bytes"]
     raise ValueError(kernel)

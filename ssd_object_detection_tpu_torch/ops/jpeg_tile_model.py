@@ -120,11 +120,11 @@ def tiles_at(images: Sequence[codec.JpegImage], tile_hw: Tuple[int, int]) -> np.
 def decode(coef: np.ndarray, batch: JpegBatch, tiles: Optional[np.ndarray] = None
            ) -> Tuple[np.ndarray, np.ndarray, int]:
     """The kernel's walk over `tiles` (the batch's own by default): (uint8
-    (total_pixels * 3,) RGB, int (total_pixels * 3,) writes a byte, the most blocks a tile
-    held)."""
+    (total_bytes,) RGB or raw components, int (total_bytes,) writes a byte, the most blocks
+    a tile held)."""
     qt, images = batch.qtables.numpy(), batch.images.numpy()
-    out = np.zeros(batch.total_pixels * 3, np.uint8)
-    writes = np.zeros(batch.total_pixels * 3, np.int64)
+    out = np.zeros(batch.total_bytes, np.uint8)
+    writes = np.zeros(batch.total_bytes, np.int64)
     most = 0
     for index, y0, x0, th, tw in (batch.tiles.numpy() if tiles is None else tiles).tolist():
         im = images[index].tolist()
@@ -165,9 +165,10 @@ def decode(coef: np.ndarray, batch: JpegBatch, tiles: Optional[np.ndarray] = Non
             comp = [_upsample(plane, ly0, lx0, y, x, *im[10 + 8 * c:15 + 8 * c])
                     for c, (plane, ly0, lx0) in enumerate(planes)]
         stage = to_rgb(comp, space)
+        n = stage.shape[-1]
         # 3. each staged row to its row of the oriented image
         for r in range(rows):
-            at = 3 * (off + (oy0 + r) * ow + ox0)
-            out[at:at + 3 * cols] = stage[r].reshape(-1)
-            writes[at:at + 3 * cols] += 1
+            at = off + n * ((oy0 + r) * ow + ox0)
+            out[at:at + n * cols] = stage[r].reshape(-1)
+            writes[at:at + n * cols] += 1
     return out, writes, most

@@ -1,6 +1,6 @@
 """Plain versions of the image kernels (csrc/jpeg_decode.cu, csrc/jpeg_progressive.cu,
 csrc/jpeg_smooth.cu, csrc/resize.cu, csrc/png_unfilter.cu, csrc/raw_image.cu,
-csrc/gif_lzw.cu), in numpy (Python for the LZW walk) at the kernels' integer and float
+csrc/gif_lzw.cu, csrc/tiff_assemble.cu), in numpy (Python for the LZW walk) at the kernels' integer and float
 arithmetic.
 
 They are the CPU route of ops/cuda_image.py and the yardstick the kernels are held to
@@ -47,12 +47,16 @@ What each reproduces, bit for bit:
   K5 `png_unfilter` / `png_expand`: the five PNG row filters, then libpng's expansion
      as cv2 asks for it (gray 1/2/4 bits scaled to 8, palette to RGB, 16 bits >> 8,
      alpha dropped, gray to RGB), Adam7 passes scattered to their pixels.
-  K8 `raw_expand`: BMP, PxM, PAM, Sun raster, PFM and HDR rows, and GIF palette indices,
-     to RGB as cv2's readers give them (grfmt_bmp.cpp, grfmt_pxm.cpp, grfmt_pam.cpp,
-     grfmt_sunras.cpp, grfmt_pfm.cpp, grfmt_hdr.cpp with rgbe.cpp, grfmt_gif.cpp's
-     code2pixel).
+  K8 `raw_expand`: BMP, PxM, PAM, Sun raster, PFM and HDR rows, GIF palette indices and
+     TIFF samples (read through each TIFF's chunk table) to RGB as cv2's readers give them
+     (grfmt_bmp.cpp, grfmt_pxm.cpp, grfmt_pam.cpp, grfmt_sunras.cpp, grfmt_pfm.cpp,
+     grfmt_hdr.cpp with rgbe.cpp, grfmt_gif.cpp's code2pixel, libtiff 4.7's RGBA put
+     routines with tif_color.c's YCbCr and CIELab conversions), every image of a decode
+     call in one table.
   K9 `lzw_decode`: a GIF frame's LZW data to palette indices as cv2 5.0's
      GifDecoder::lzwDecode reads it, interlaced rows moved to their place.
+  K10 `tiff_assemble`: libtiff's horizontal predictor and big-endian byte swap, in place
+     in a decode call's TIFF chunks.
 """
 
 from __future__ import annotations
@@ -589,9 +593,10 @@ def upsample(plane: np.ndarray, y: np.ndarray, x: np.ndarray, dw: int, dh: int, 
                     (3 * this + other + np.where(xodd, 7, 8)) >> 4)
 
 
-def color(planes: np.ndarray, images: np.ndarray, total_pixels: int) -> np.ndarray:
-    """K3: planes -> uint8 (total_pixels * 3,) RGB, each image at its pixel offset."""
-    out = np.zeros(total_pixels * 3, np.uint8)
+def color(planes: np.ndarray, images: np.ndarray, total_bytes: int) -> np.ndarray:
+    """K3: planes -> uint8 (total_bytes,) RGB (or, SPACE_RAW, the components), each image
+    at its byte offset."""
+    out = np.zeros(total_bytes, np.uint8)
     for row in images.tolist():
         off, oh, ow, h, w, orient, ncomp, space = row[:8]
         y, x = orientation_source(oh, ow, h, w, orient)
@@ -601,12 +606,16 @@ def color(planes: np.ndarray, images: np.ndarray, total_pixels: int) -> np.ndarr
             rows = -(-dh // 8) * 8
             plane = planes[poff:poff + rows * stride].reshape(rows, stride)
             comp.append(upsample(plane, y, x, dw, dh, fh, fv, mode))
-        out[off * 3:(off + oh * ow) * 3] = to_rgb(comp, space).reshape(-1)
+        px = to_rgb(comp, space).reshape(-1)
+        out[off:off + px.size] = px
     return out
 
 
 def to_rgb(comp: List[np.ndarray], space: int) -> np.ndarray:
-    """uint8 (..., 3) RGB of the components' upsampled samples in colour space `space`."""
+    """uint8 (..., 3) RGB of the components' upsampled samples in colour space `space`
+    (SPACE_RAW: (..., ncomp), the components as they are)."""
+    if space == codec.SPACE_RAW:
+        return np.stack(comp, -1).astype(np.uint8)
     if space == SPACE_GRAY:
         rgb = [comp[0]] * 3
     elif space == SPACE_RGB:
@@ -860,18 +869,40 @@ def last_good_row(segments: np.ndarray, jobs: np.ndarray, stops: np.ndarray, las
 
 
 # ---------------------------------------------------------------------------- K8
-def raw_expand(data: np.ndarray, params: np.ndarray, palette: np.ndarray, scale: float) -> np.ndarray:
-    """K8: a raw image's rows (codec.RawImage) -> uint8 RGB, as cv2's BMP, PxM, PAM, Sun
-    raster, PFM, HDR, GIF and TIFF readers give it (BGR there) with IMREAD_COLOR, (H, W, 3)
-    turned by its orientation; pixels outside the rows' window take palette entry 256."""
-    (height, width, fmt, offset, stride, channels, maxval, big_endian, y0, x0, wh, ww, orientation, colour, alpha,
-     plane_bytes, mirror) = (int(v) for v in params)
+def raw_expand(buffer: np.ndarray, images: int, chunk_at: int, jpeg: Optional[np.ndarray], out_bytes: int
+               ) -> np.ndarray:
+    """K8 over a decode call's images (codec.RawBatch: the image table at int 0 of
+    `buffer`, TIFF chunks at int `chunk_at`; `jpeg`, the JPEG kernels' output, holds the
+    TIFFs' JPEG chunks) -> uint8 (out_bytes,) RGB, each image at its byte offset, as cv2's
+    BMP, PxM, PAM, Sun raster, PFM, HDR, GIF and TIFF readers give it (BGR there) with
+    IMREAD_COLOR, turned by its orientation; pixels outside the rows' window take palette
+    entry 256."""
+    desc = buffer[:buffer.size // 4 * 4].view(np.int32)
+    out = np.zeros(max(out_bytes, 1), np.uint8)
+    for i in range(images):
+        row = [int(v) for v in desc[i * codec.RAW_INTS:(i + 1) * codec.RAW_INTS]]
+        rgb = _expand(buffer, desc, chunk_at, jpeg, row).reshape(-1)
+        out[row[codec.R_OUT]:row[codec.R_OUT] + rgb.size] = rgb
+    return out
+
+
+def _expand(buffer, desc, chunk_at, jpeg, row) -> np.ndarray:
+    """One image of K8's table -> uint8 (out h, out w, 3)."""
+    height, width, fmt = row[codec.R_HEIGHT], row[codec.R_WIDTH], row[codec.R_FMT]
+    y0, x0, wh, ww = row[codec.R_TOP:codec.R_WIN_W + 1]
+    palette = buffer[row[codec.R_PALETTE]:row[codec.R_PALETTE] + 257 * 3].reshape(257, 3)
     img = np.empty((height, width, 3), np.uint8)
     img[:] = palette[256]
-    img[y0:y0 + wh, x0:x0 + ww] = _window(data, fmt, offset, stride, channels, maxval, big_endian, wh, ww,
-                                          palette, scale, colour, alpha, plane_bytes)
-    if mirror:
-        img = img[:, mirrored_columns(width, mirror)]
+    if fmt >= codec.TIFF_LUT_FORMAT:
+        y, x = np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij")
+        img[y0:y0 + wh, x0:x0 + ww] = _tiff_pixels(buffer, desc, chunk_at, jpeg, row, palette, y, x)
+    else:
+        img[y0:y0 + wh, x0:x0 + ww] = _window(
+            buffer, fmt, row[codec.R_OFFSET], row[codec.R_STRIDE], row[codec.R_CHANNELS], row[codec.R_MAXVAL],
+            row[codec.R_BIG_ENDIAN], wh, ww, palette, np.int32(row[codec.R_SCALE]).view(np.float32))
+    if row[codec.R_MIRROR]:
+        img = img[:, mirrored_columns(width, row[codec.R_MIRROR])]
+    orientation = row[codec.R_ORIENTATION]
     oh, ow = codec.oriented_hw(height, width, orientation)
     return img[orientation_source(oh, ow, height, width, orientation)]
 
@@ -884,48 +915,142 @@ def mirrored_columns(width: int, tile: int) -> np.ndarray:
     return x0 + np.minimum(tile, width - x0) - 1 - (x - x0)
 
 
-def tiff_samples(data: np.ndarray, rows: np.ndarray, x: np.ndarray, channels: int, bits: int, plane_bytes: int,
-                 sample: int, rgb16: bool) -> np.ndarray:
-    """Sample `sample` of each pixel of a TIFF's image buffer as 8 bits, as libtiff's put
-    routines take it: a 1- or 4-bit value as is (MSB first), a 16-bit one (little-endian in
-    the buffer) as its high byte, or rounded to 8 bits where the routine maps it through
-    Bitdepth16To8 (`rgb16`: RGB, and gray planes)."""
-    d = data.astype(np.int64)
-    base = rows + sample * plane_bytes if plane_bytes else rows
-    i = x * channels + (0 if plane_bytes else sample)  # the sample's index in its row
+def _chunk_bytes(buffer, desc, chunk_at, jpeg, row, plane, y, x, rows_a_pitch: int = 1):
+    """For pixels (y, x) of a TIFF: (each pixel's row and column in its chunk in `plane`,
+    a function reading the byte `b` after the start of a pixel's row there, the rows a
+    pitch apart `rows_a_pitch` to a pitch (a YCbCr data unit's height), as libtiff's put
+    routine reads it: zero past what the chunk holds)."""
+    rows_c, cw = row[codec.R_STRIDE], row[codec.R_CHUNK_W]
+    cy, cx = y // rows_c, x // cw
+    k = row[codec.R_OFFSET] + plane * row[codec.R_PER_PLANE] + cy * row[codec.R_ACROSS] + cx
+    c = desc[chunk_at + k[..., None] * codec.TIFF_CHUNK_INTS + np.arange(codec.TIFF_CHUNK_INTS)].astype(np.int64)
+    r, col = y - cy * rows_c, x - cx * cw
+    base = c[..., codec.C_SRC] + r // rows_a_pitch * c[..., codec.C_PITCH]
+    from_jpeg = c[..., codec.C_JPEG] == 1
+    held_rows = r < c[..., codec.C_ROWS_HELD]
+
+    def read(b, check=True):
+        ok = held_rows & ((b < c[..., codec.C_BYTES_HELD]) if check else True)
+        if jpeg is None:  # the JPEG chunks read as zero
+            ok = ok & ~from_jpeg
+        a = np.where(ok & ~from_jpeg, base + b, 0)
+        v = buffer[np.minimum(a, buffer.size - 1)].astype(np.int64)
+        if jpeg is not None and from_jpeg.any():
+            j = np.where(ok & from_jpeg, base + b, 0)
+            v = np.where(from_jpeg, jpeg[np.minimum(j, jpeg.size - 1)].astype(np.int64), v)
+        return np.where(ok, v, 0)
+
+    return r, col, read
+
+
+def tiff_samples(buffer, desc, chunk_at, jpeg, row, y, x, sample: int, mode: str = "8") -> np.ndarray:
+    """Sample `sample` of TIFF pixels (y, x), read through their chunks, as libtiff's put
+    routines take it: a 1- or 4-bit value as is (MSB first), a 16-bit one (little-endian
+    after K10) as its high byte ("8"), rounded to 8 bits where the routine maps it through
+    Bitdepth16To8 ("rgb16": RGB, and gray planes), or whole ("16": CIELab's)."""
+    planar, bits = row[codec.R_PLANAR], row[codec.R_MAXVAL]
+    _, col, read = _chunk_bytes(buffer, desc, chunk_at, jpeg, row, sample if planar else 0, y, x)
+    i = col * row[codec.R_CHANNELS] + (0 if planar else sample)  # the sample's index in its row
     if bits == 1:
-        return (d[base + (i >> 3)] >> (7 - (i & 7))) & 1
+        return (read(i >> 3) >> (7 - (i & 7))) & 1
     if bits == 4:
-        return np.where(i & 1, d[base + (i >> 1)] & 15, d[base + (i >> 1)] >> 4)
+        return np.where(i & 1, read(i >> 1) & 15, read(i >> 1) >> 4)
     if bits == 8:
-        return d[base + i]
-    v = d[base + 2 * i] | d[base + 2 * i + 1] << 8
-    return (v + 128) // 257 if rgb16 else v >> 8
+        return read(i)
+    v = read(2 * i) | read(2 * i + 1) << 8
+    return v if mode == "16" else (v + 128) // 257 if mode == "rgb16" else v >> 8
 
 
-def _window(data, fmt, offset, stride, channels, maxval, big_endian, height, width, palette, scale, colour=3,
-            alpha=-1, plane_bytes=0):
+def _tiff_pixels(buffer, desc, chunk_at, jpeg, row, palette, y, x) -> np.ndarray:
+    """RGB of TIFF pixels (y, x) by libtiff's put routine for the image's format."""
+    fmt, colour, alpha = row[codec.R_FMT], row[codec.R_COLOUR], row[codec.R_ALPHA]
+
+    def s(c, mode="rgb16"):
+        return tiff_samples(buffer, desc, chunk_at, jpeg, row, y, x, c, mode)
+
+    if fmt == codec.TIFF_LUT_FORMAT:  # BWmap / PALmap
+        return palette[s(0, "8")]
+    if fmt == codec.TIFF_CMYK_FORMAT:  # putRGBcontig8bitCMYKtile, putCMYKseparate8bittile
+        k = 255 - s(3)
+        return np.stack([k * (255 - s(c)) // 255 for c in range(3)], -1).astype(np.uint8)
+    if fmt == codec.TIFF_YCBCR_FORMAT:
+        table = desc[row[codec.R_TABLE]:row[codec.R_TABLE] + codec.YCBCR_TABLE_INTS].astype(np.int64).reshape(5, 256)
+        if row[codec.R_PLANAR]:  # putseparate8bitYCbCr11tile
+            return ycbcr_rgb(table, s(0), s(1), s(2))
+        hs, vs = row[codec.R_HS], row[codec.R_VS]  # putcontig8bitYCbCr<hs><vs>tile: a data unit's Y, then Cb, Cr
+        r, col, read = _chunk_bytes(buffer, desc, chunk_at, jpeg, row, 0, y, x, vs)
+        unit = (col // hs) * (hs * vs + 2)
+        return ycbcr_rgb(table, read(unit + (r % vs) * hs + col % hs, False), read(unit + hs * vs, False),
+                         read(unit + hs * vs + 1, False))
+    if fmt == codec.TIFF_LAB_FORMAT:
+        table = desc[row[codec.R_TABLE]:row[codec.R_TABLE] + codec.LAB_TABLE_INTS].view(np.float32)
+        if row[codec.R_MAXVAL] == 16:  # putcontig8bitCIELab16: TIFFCIELab16ToXYZ
+            l, a, b = s(0, "16"), s(1, "16"), s(2, "16")
+            return lab_rgb(table, l.astype(np.float32) * np.float32(100) / np.float32(65535),
+                           (a - ((a & 0x8000) << 1)).astype(np.float32) / np.float32(256) / np.float32(500),
+                           (b - ((b & 0x8000) << 1)).astype(np.float32) / np.float32(256) / np.float32(200))
+        l, a, b = s(0), s(1), s(2)  # putcontig8bitCIELab8: TIFFCIELabToXYZ, the 8-bit values scaled to 16
+        return lab_rgb(table, (l * 257).astype(np.float32) * np.float32(100) / np.float32(65535),
+                       ((a - ((a & 0x80) << 1)) * 256).astype(np.float32) / np.float32(256) / np.float32(500),
+                       ((b - ((b & 0x80) << 1)) * 256).astype(np.float32) / np.float32(256) / np.float32(200))
+    rgb = [s(c if colour == 3 else 0) for c in range(3)]
+    if alpha >= 0:  # unassociated alpha: libtiff's UaToAa premultiplies
+        a = s(alpha)
+        rgb = [(v * a + 127) // 255 for v in rgb]
+    return np.stack(rgb, -1).astype(np.uint8)
+
+
+def ycbcr_rgb(table: np.ndarray, yy: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
+    """tif_color.c TIFFYCbCrtoRGB through TIFFYCbCrToRGBInit's tables (codec.ycbcr_tables:
+    Cr_r, Cb_b, Cr_g, Cb_g, Y), clamped to [0, 255]."""
+    cr_r, cb_b, cr_g, cb_g, y_tab = table
+    r = y_tab[yy] + cr_r[cr]
+    g = y_tab[yy] + ((cb_g[cb] + cr_g[cr]) >> 16)
+    b = y_tab[yy] + cb_b[cb]
+    return np.stack([np.clip(v, 0, 255) for v in (r, g, b)], -1).astype(np.uint8)
+
+
+def lab_rgb(table: np.ndarray, lum: np.ndarray, a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """tif_color.c TIFFCIELab16ToXYZ from L (0-100), a* / 500 and b* / 200 (float32, as
+    the caller's put routine scales them), then TIFFXYZToRGB through
+    TIFFCIELabToRGBInit's tables (codec.lab_tables), every step in float32 as the C
+    evaluates it."""
+    f = np.float32
+    x0, y0, z0 = table[0], table[1], table[2]
+    lum = lum.astype(f)
+    low = lum < f(8.856)
+    y_low = (lum * y0).astype(f) / f(903.292)
+    cby_low = f(7.787) * (y_low / y0).astype(f) + f(f(16) / f(116))
+    cby_high = ((lum + f(16)).astype(f) / f(116)).astype(f)
+    y_high = ((y0 * cby_high).astype(f) * cby_high).astype(f) * cby_high
+    yy = np.where(low, y_low, y_high).astype(f)
+    cby = np.where(low, cby_low, cby_high).astype(f)
+
+    def xz(t, w):
+        t = t.astype(f)
+        lin = (w * (t - f(0.13793)).astype(f)).astype(f) / f(7.787)
+        cube = ((w * t).astype(f) * t).astype(f) * t
+        return np.where(t < f(0.2069), lin, cube).astype(f)
+
+    xx, zz = xz(a.astype(f) + cby, x0), xz(cby - b.astype(f), z0)
+    out = []
+    for gun in range(3):
+        m0, m1, m2, black, white, step, vrw = table[3 + 7 * gun:10 + 7 * gun]
+        v = ((m0 * xx).astype(f) + (m1 * yy).astype(f)).astype(f) + (m2 * zz).astype(f)
+        v = np.minimum(np.maximum(v.astype(f), black), white)
+        i = np.minimum(codec.LAB_RANGE, ((v - black).astype(f) / step).astype(f).astype(np.int64))
+        level = table[codec.LAB_HEADER + gun * (codec.LAB_RANGE + 1) + i].astype(np.float64)
+        out.append(np.minimum(np.where(level > 0, level + 0.5, level - 0.5).astype(np.int64), int(vrw)))
+    return np.stack(out, -1).astype(np.uint8)
+
+
+def _window(data, fmt, offset, stride, channels, maxval, big_endian, height, width, palette, scale):
     x = np.arange(width)
     rows = offset + np.arange(height)[:, None] * stride  # (H, 1) first byte of each row
     d = data.astype(np.int64)
 
     def at(col):
         return d[rows + col]
-
-    if fmt in (codec.TIFF_LUT_FORMAT, codec.TIFF_RGB_FORMAT, codec.TIFF_CMYK_FORMAT):
-        def s(c, rgb16=True):
-            return tiff_samples(data, rows, x, channels, maxval, plane_bytes, c, rgb16)
-
-        if fmt == codec.TIFF_LUT_FORMAT:  # BWmap / PALmap
-            return palette[s(0, False)]
-        if fmt == codec.TIFF_CMYK_FORMAT:  # putRGBcontig8bitCMYKtile, putCMYKseparate8bittile
-            k = 255 - s(3)
-            return np.stack([k * (255 - s(c)) // 255 for c in range(3)], -1).astype(np.uint8)
-        rgb = [s(c if colour == 3 else 0) for c in range(3)]
-        if alpha >= 0:  # unassociated alpha: libtiff's UaToAa premultiplies
-            a = s(alpha)
-            rgb = [(v * a + 127) // 255 for v in rgb]
-        return np.stack(rgb, -1).astype(np.uint8)
 
     if fmt in (codec.RAW_PAL1, codec.RAW_PAL4, codec.RAW_PAL8):
         if fmt == codec.RAW_PAL1:
@@ -1124,41 +1249,30 @@ def lzw_decode(data: np.ndarray, gifs: np.ndarray, total: int, out: np.ndarray =
 
 
 # ---------------------------------------------------------------------------- K10
-def tiff_assemble(decoded: np.ndarray, chunks: np.ndarray, status: np.ndarray, image_bytes: int,
-                  jpeg: Optional[np.ndarray] = None) -> np.ndarray:
-    """K10: every TIFF chunk's decoded rows (codec.TIFF_CHUNK_INTS rows; `status`, K9's,
-    for the LZW ones) -> the uint8 (image_bytes,) image buffer, zero where no chunk lands:
-    the horizontal predictor undone a row at a time (each sample plus the one a pixel
-    before, mod 2^8 or 2^16), 16-bit samples of a big-endian file swapped to
-    little-endian, and each chunk's rows placed in its rectangle, cut at the image's
-    edge. A chunk whose decoding failed is placed as it decoded, as libtiff leaves it.
-    The placed rows are read `pitch` bytes apart (libtiff's skew in a tile cut at the
-    right edge). A JPEG chunk's rows come from `jpeg`, the JPEG kernels' RGB (None: the
-    chunk stays zero), every `jpeg_step`-th byte of its frame's rows."""
-    out = np.zeros(max(image_bytes, 1), np.uint8)
-    for (src, rows, row_bytes, dst, stride, placed, predictor, samples, swab, stream, width, pitch,
-         jpeg_step) in chunks.tolist():
-        at = np.arange(rows)[:, None]
-        if jpeg_step:
-            if jpeg is not None:
-                out[dst + at * stride + np.arange(placed)] = jpeg[src + at * pitch + np.arange(placed) * jpeg_step]
-            continue
+def tiff_assemble(buffer: np.ndarray, chunk_at: int, work_at: int, works: int, status: np.ndarray) -> np.ndarray:
+    """K10, in place in `buffer` (a codec.RawBatch's): each chunk of K10's list (at int
+    `work_at`, `works` of them; the kernel finds a row's chunk through the rows' entries
+    after the list) has the horizontal predictor undone a row at a time (each
+    sample plus the one a pixel before, mod 2^8 or 2^16) and 16-bit samples of a
+    big-endian file swapped to little-endian; a chunk whose K9 stream failed (`status`)
+    stays as it decoded, as libtiff leaves it. Returns `buffer`."""
+    desc = buffer[:buffer.size // 4 * 4].view(np.int32)
+    for k in desc[work_at:work_at + works * codec.K10_WORK_INTS:codec.K10_WORK_INTS].tolist():
+        c = desc[chunk_at + k * codec.TIFF_CHUNK_INTS:chunk_at + (k + 1) * codec.TIFF_CHUNK_INTS].tolist()
+        src, rows, row_bytes, width, samples, predictor, swab, stream = (
+            c[codec.C_SRC], c[codec.C_ROWS], c[codec.C_ROW_BYTES], c[codec.C_WIDTH], c[codec.C_SAMPLES],
+            c[codec.C_PREDICTOR], c[codec.C_SWAB], c[codec.C_STREAM])
         if stream >= 0 and status[stream] != codec.GIF_OK:
-            predictor, swab = 0, 0
-        block = decoded[src:src + rows * row_bytes].reshape(rows, row_bytes)
+            continue
+        block = buffer[src:src + rows * row_bytes].reshape(rows, row_bytes)
+        n = width * samples
         if predictor == 8:
-            n = width * samples
             v = block[:, :n].reshape(rows, width, samples).astype(np.int64)
-            block = block.copy()
             block[:, :n] = (np.cumsum(v, 1) & 255).astype(np.uint8).reshape(rows, n)
         elif predictor == 16 or swab:
-            n = width * samples
             pairs = block[:, :2 * n].reshape(rows, n, 2).astype(np.int64)
             v = pairs[..., 0] << 8 | pairs[..., 1] if swab else pairs[..., 0] | pairs[..., 1] << 8
             if predictor == 16:
                 v = np.cumsum(v.reshape(rows, width, samples), 1).reshape(rows, n) & 0xFFFF
-            block = block.copy()
             block[:, :2 * n] = np.stack([v & 255, v >> 8], -1).astype(np.uint8).reshape(rows, 2 * n)
-        flat = block.reshape(-1)
-        out[dst + at * stride + np.arange(placed)] = flat[at * pitch + np.arange(placed)]
-    return out
+    return buffer

@@ -88,7 +88,8 @@ NEW_SEAMS = (1, 9, 17, 33)  # widths at 4:1:1 and 4:1:0 (MCUs 32 wide); heights 
 # fixtures the port refuses though cv2 reads them: name -> what the refusal names
 REFUSED = {"other_8x6.avif": "AVIF", "other_gray_8x6.pfm": "1-channel PFM", "other_mif1_8x6.avif": "AVIF",
            "pam_rgb_alpha_37x23.pam": "alpha", "pam_gray_alpha_37x23.pam": "alpha",
-           "tiff_refused_group4_37x23.tif": "CCITT Group 4", "tiff_refused_ycbcr_37x23.tif": "YCbCr"}
+           "tiff_refused_group4_37x23.tif": "CCITT Group 4",
+           "tiff_refused_ycbcr44_odd_units_33x17.tif": "no whole number of scanlines"}
 # fixtures cv2 returns None for, where the port raises ValueError: name -> what is wrong
 INVALID = {
     "gif_invalid_short_37x23.gif": "the LZW data ends a pixel short of the frame",
@@ -123,6 +124,14 @@ INVALID = {
     "tiff_jpeg_invalid_components_67x45.tif": "gray JPEG strips in an RGB TIFF",
     "tiff_jpeg_invalid_tall_strip_67x45.tif": "a JPEG taller than its strip, not the last",
     "tiff_invalid_lzma_37x23.tif": "LZMA compression (not configured in cv2's libtiff)",
+    "tiff_invalid_icclab_37x23.tif": "ICCLab (photometric 9): no RGBA put routine",
+    "tiff_invalid_itulab_37x23.tif": "ITULab (photometric 10): no RGBA put routine",
+    "tiff_invalid_lab_alpha_37x23.tif": "CIELab with an alpha sample",
+    "tiff_invalid_lab_planar_37x23.tif": "CIELab in separate planes",
+    "tiff_invalid_ycbcr24_37x23.tif": "YCbCr subsampling 2 x 4",
+    "tiff_invalid_ycbcr_planar22_37x23.tif": "YCbCr in separate planes at 2 x 2",
+    "tiff_invalid_ycbcr_alpha_37x23.tif": "YCbCr with an alpha sample",
+    "tiff_jpeg_invalid_ycbcr_alpha_37x23.tif": "JPEG-in-TIFF of YCbCr and an alpha sample in one plane",
 }
 
 
@@ -556,13 +565,14 @@ def bigtiff(pixels: np.ndarray, big_endian: bool = False) -> bytes:
     return out + struct.pack(e + "Q", 0) + body
 
 
-_TIFF_TYPES = {3: "H", 4: "I", 7: "B", 16: "Q"}
+_TIFF_TYPES = {3: "H", 4: "I", 5: "I", 7: "B", 16: "Q"}  # RATIONAL: numerator, denominator
 
 
 def tiff(tags: dict, chunks: list, big_endian: bool = False, big: bool = False, tiled: bool = False,
          counts=None) -> bytes:
     """A TIFF (a BigTIFF where `big`) of one directory: `tags` {tag: (type, values)} of
-    SHORT, LONG, UNDEFINED or LONG8 values, the chunks' bytes after the directory, their offsets and
+    SHORT, LONG, RATIONAL (numerator, denominator pairs), UNDEFINED or LONG8 values, the
+    chunks' bytes after the directory, their offsets and
     byte counts (`counts`, where given) in StripOffsets / StripByteCounts or the tile tags."""
     e = ">" if big_endian else "<"
     inline, entry = (8, "HHQ") if big else (4, "HHI")
@@ -586,7 +596,7 @@ def tiff(tags: dict, chunks: list, big_endian: bool = False, big: bool = False, 
         raw = struct.pack(e + _TIFF_TYPES[kind] * len(values), *values)
         if len(raw) > inline:
             raw, extra = struct.pack(e + ("Q" if big else "I"), extra_at + len(extra)), extra + raw + bytes(len(raw) & 1)
-        out += struct.pack(e + entry, tag, kind, len(values)) + raw.ljust(inline, b"\0")
+        out += struct.pack(e + entry, tag, kind, len(values) // (2 if kind == 5 else 1)) + raw.ljust(inline, b"\0")
     return out + bytes(8 if big else 4) + extra + b"".join(chunks)
 
 
@@ -602,6 +612,156 @@ def tiff_tags(w: int, h: int, bits: int, spp: int, photometric: int, compression
 
 TIFF_TAGS = {"orientation": 274, "planar": 284, "predictor": 317, "colormap": 320, "tile_width": 322,
              "tile_length": 323, "extra": 338, "sample_format": 339, "fill_order": 266}
+
+
+def ycbcr_units(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, hs: int, vs: int) -> np.ndarray:
+    """Contiguous subsampled YCbCr (TIFF 6.0 data units): (rows / vs, columns / hs, hs vs +
+    2) of each unit's hs x vs Y samples (the image's edge repeated), then its Cb and Cr
+    (`cb`, `cr` already subsampled, a sample a unit)."""
+    h, w = y.shape
+    full = np.pad(y, ((0, -h % vs), (0, -w % hs)), mode="edge")
+    units = full.reshape(full.shape[0] // vs, vs, full.shape[1] // hs, hs).transpose(0, 2, 1, 3)
+    return np.concatenate([units.reshape(units.shape[0], units.shape[1], vs * hs), cb[..., None], cr[..., None]],
+                          -1).astype(np.uint8)
+
+
+def rationals(values) -> tuple:
+    """RATIONAL field values (type 5): each value as a numerator over 10,000."""
+    return 5, [x for v in values for x in (int(round(v * 10000)), 10000)]
+
+
+def colour_tiff_fixtures(cv2) -> dict:
+    """YCbCr and CIELab TIFFs, and JPEG-in-TIFFs of 2 and 4 samples and of separate planes,
+    as cv2 5.0 reads them through libtiff 4.7's put routines (and those cv2 returns None
+    for): PIL's writer (YCbCr at 1 x 1, CIELab, CMYK, RGBA, gray + alpha) and this tool's
+    for the subsamplings, tiles, tags and planes PIL does not write."""
+    from PIL import Image
+
+    files = {}
+    bgr = draw(23, 37, 86, cv2)
+    rgb = np.ascontiguousarray(bgr[..., ::-1])
+    gray = cv2.cvtColor(bgr, cv2.COLOR_BGR2GRAY)
+    pil = Image.fromarray(rgb)
+    for comp in ("raw", "packbits", "tiff_lzw", "tiff_deflate"):
+        files[f"tiff_pil_ycbcr_{comp.replace('tiff_', '')}_37x23.tif"] = pil_tiff(pil.convert("YCbCr"), comp)
+    lab_img = pil.convert("LAB")
+    lab_img.info.pop("icc_profile", None)  # PIL's Lab profile carries its creation time: the files stay the same
+    for comp in ("raw", "packbits", "tiff_lzw", "tiff_deflate", "jpeg"):
+        files[f"tiff_pil_lab_{comp.replace('tiff_', '')}_37x23.tif"] = pil_tiff(lab_img, comp)
+    for mode, img in (("cmyk", pil.convert("CMYK")), ("rgba", Image.fromarray(np.dstack([rgb, gray]))),
+                      ("la", Image.fromarray(np.dstack([gray, 255 - gray // 2])).convert("LA"))):
+        files[f"tiff_jpeg_pil_{mode}_37x23.tif"] = pil_tiff(img, "jpeg")
+    ycc = np.asarray(pil.convert("YCbCr"))
+    lzw = lambda b: tiff_lzw_pack(tiff_lzw_codes(b))  # noqa: E731
+    codecs = {"none": (1, lambda b: b), "lzw": (5, lzw), "packbits": (32773, packbits), "deflate": (8, zlib.compress)}
+
+    def subsampled(img, hs, vs, rows):
+        """Strips of `rows` rows of contiguous YCbCr units of (h, w, 3) Y, Cb, Cr samples."""
+        out = []
+        for r in range(0, img.shape[0], rows):
+            part = img[r:r + rows]
+            out.append(ycbcr_units(part[..., 0], part[::vs, ::hs, 1], part[::vs, ::hs, 2], hs, vs).tobytes())
+        return out
+
+    def ycbcr_tags(sub, compression=1, rows=8, w=37, h=23, **more):
+        tags = tiff_tags(w, h, 8, 3, 6, compression, rows=rows, **more)
+        tags[530] = (3, list(sub))
+        return tags
+
+    for hs, vs in ((1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4)):  # putcontig8bitYCbCr<hs><vs>tile
+        for name, (code, enc) in codecs.items():
+            files[f"tiff_ycbcr{hs}{vs}_{name}_37x23.tif"] = tiff(ycbcr_tags((hs, vs), code),
+                                                                 [enc(c) for c in subsampled(ycc, hs, vs, 8)])
+    files["tiff_ycbcr22_rows5_37x23.tif"] = tiff(ycbcr_tags((2, 2), 8, 5),
+                                                 [zlib.compress(c) for c in subsampled(ycc, 2, 2, 5)])
+    files["tiff_ycbcr22_orientation6_37x23.tif"] = tiff(ycbcr_tags((2, 2), 5, orientation=6),
+                                                        [lzw(c) for c in subsampled(ycc, 2, 2, 8)])
+    for (hs, vs), name in (((2, 2), "predictor"), ((2, 1), "predictor_fails")):
+        # the predictor walks scanlines (a unit row's bytes / vs), 3 bytes a pixel; 37
+        # pixels at 2 x 1 make scanlines of 76 bytes, which horAcc8 refuses
+        units = ycbcr_units(ycc[..., 0], ycc[::vs, ::hs, 1], ycc[::vs, ::hs, 2], hs, vs).tobytes()
+        lines = np.frombuffer(units, np.uint8).reshape(-1, len(units) // (-(-23 // vs) * vs))
+        data = hdiff(lines, 3, 8).astype(np.uint8).tobytes() if lines.shape[1] % 3 == 0 else units
+        files[f"tiff_ycbcr{hs}{vs}_{name}_37x23.tif"] = tiff(ycbcr_tags((hs, vs), 5, 23, predictor=2), [lzw(data)])
+    for hs, vs in ((2, 2), (4, 4)):  # tiles cut at the right and bottom edges (4 x 4: libtiff's 10-byte skew)
+        tiles = []
+        for ty in range(0, 23, 16):
+            for tx in range(0, 37, 16):
+                t = np.pad(ycc[ty:ty + 16, tx:tx + 16], ((0, max(0, ty + 16 - 23)), (0, max(0, tx + 16 - 37)),
+                                                           (0, 0)), mode="edge")
+                tiles.append(zlib.compress(ycbcr_units(t[..., 0], t[::vs, ::hs, 1], t[::vs, ::hs, 2], hs,
+                                                       vs).tobytes()))
+        tags = ycbcr_tags((hs, vs), 8, tile_width=16, tile_length=16)
+        del tags[278]
+        files[f"tiff_ycbcr{hs}{vs}_tiles_37x23.tif"] = tiff(tags, tiles, tiled=True)
+    files["tiff_ycbcr_planar_37x23.tif"] = tiff(ycbcr_tags((1, 1), 8, planar=2),
+                                                [zlib.compress(ycc[..., c].tobytes()) for c in range(3)])
+    tags = ycbcr_tags((1, 1), 1, 23)
+    tags[529] = rationals((0.2126, 0.7152, 0.0722))
+    tags[532] = rationals((16, 235, 128, 240, 128, 240))
+    files["tiff_ycbcr_bt709_37x23.tif"] = tiff(tags, [ycc.tobytes()])
+    odd = draw(17, 33, 87, cv2)[..., ::-1]  # 4 x 4 units 9 to a row: 162 bytes, no whole number of scanlines
+    files["tiff_refused_ycbcr44_odd_units_33x17.tif"] = tiff(
+        ycbcr_tags((4, 4), 1, 4, 33, 17), subsampled(np.asarray(Image.fromarray(odd).convert("YCbCr")), 4, 4, 4))
+    lab = np.asarray(lab_img)
+    lab16 = lab.astype(np.uint16) * 257 + np.arange(37, dtype=np.uint16)[None, :, None]
+    lab16[..., 1:] = (lab[..., 1:].view(np.int8).astype(np.int16) * 256 + 77).view(np.uint16)
+    files["tiff_lab16_37x23.tif"] = tiff(tiff_tags(37, 23, 16, 3, 8, 5, predictor=2),
+                                         [lzw(hdiff(lab16.reshape(23, -1), 3, 16).astype("<u2").tobytes())])
+    files["tiff_lab16_be_37x23.tif"] = tiff(tiff_tags(37, 23, 16, 3, 8), [lab16.astype(">u2").tobytes()],
+                                            big_endian=True)
+    tags = tiff_tags(37, 23, 8, 3, 8, 8)
+    tags[318] = rationals((0.3127, 0.3290))  # D65
+    files["tiff_lab_d65_37x23.tif"] = tiff(tags, [zlib.compress(lab.tobytes())])
+    tags = tiff_tags(37, 23, 8, 3, 8, 8, tile_width=16, tile_length=16)
+    del tags[278]
+    files["tiff_lab_tiles_37x23.tif"] = tiff(tags, [zlib.compress(np.pad(
+        lab[y:y + 16, x:x + 16], ((0, max(0, y + 16 - 23)), (0, max(0, x + 16 - 37)), (0, 0))).tobytes())
+        for y in range(0, 23, 16) for x in range(0, 37, 16)], tiled=True)
+    # JPEG-in-TIFF of separate planes (each plane's chunk a gray JPEG) and of 4 samples in tiles
+    big = draw(45, 67, 88, cv2)
+    for name, photometric, planes in (("rgb", 2, [big[..., c] for c in (2, 1, 0)]),
+                                      ("ycbcr", 6, [np.ascontiguousarray(p) for p in np.moveaxis(np.asarray(
+                                          Image.fromarray(big[..., ::-1]).convert("YCbCr")), -1, 0)])):
+        streams = [jpeg(np.ascontiguousarray(p[y:y + 16]), cv2) for p in planes for y in range(0, 45, 16)]
+        tables, chunks = jpeg_tables(streams)
+        tags = tiff_tags(67, 45, 8, 3, photometric, 7, rows=16, planar=2)
+        tags[347] = (7, list(tables))
+        if photometric == 6:
+            tags[530] = (3, [1, 1])
+        files[f"tiff_jpeg_planar_{name}_67x45.tif"] = tiff(tags, chunks)
+    cmyk = np.asarray(Image.fromarray(big[..., ::-1]).convert("CMYK"))
+    pad = np.pad(cmyk, ((0, 3), (0, 29), (0, 0)), mode="edge")
+    tables, chunks = jpeg_tables([encode_baseline([np.ascontiguousarray(pad[y:y + 16, x:x + 32, c]) for c in range(4)],
+                                                  [(1, 1)] * 4, cv2)
+                                  for y in range(0, 45, 16) for x in range(0, 67, 32)])
+    tags = tiff_tags(67, 45, 8, 4, 5, 7, tile_width=32, tile_length=16)
+    del tags[278]
+    tags[347] = (7, list(tables))
+    files["tiff_jpeg_cmyk_tiles_67x45.tif"] = tiff(tags, chunks, tiled=True)
+    ga = np.pad(np.dstack([cv2.cvtColor(big, cv2.COLOR_BGR2GRAY), big[..., 0]]), ((0, 3), (0, 29), (0, 0)), mode="edge")
+    tables, chunks = jpeg_tables([encode_baseline([np.ascontiguousarray(ga[y:y + 16, x:x + 32, c]) for c in range(2)],
+                                                  [(1, 1)] * 2, cv2)
+                                  for y in range(0, 45, 16) for x in range(0, 67, 32)])
+    tags = tiff_tags(67, 45, 8, 2, 1, 7, tile_width=32, tile_length=16, extra=2)
+    del tags[278]
+    tags[347] = (7, list(tables))
+    files["tiff_jpeg_gray_alpha_tiles_67x45.tif"] = tiff(tags, chunks, tiled=True)  # libtiff's skew at the edge
+    # what cv2 returns None for
+    for photometric, name in ((9, "icclab"), (10, "itulab")):
+        files[f"tiff_invalid_{name}_37x23.tif"] = tiff(tiff_tags(37, 23, 8, 3, photometric), [lab.tobytes()])
+    files["tiff_invalid_lab_alpha_37x23.tif"] = tiff(tiff_tags(37, 23, 8, 4, 8, extra=2),
+                                                     [np.dstack([lab, gray]).tobytes()])
+    files["tiff_invalid_lab_planar_37x23.tif"] = tiff(tiff_tags(37, 23, 8, 3, 8, planar=2),
+                                                      [lab[..., c].tobytes() for c in range(3)])
+    files["tiff_invalid_ycbcr24_37x23.tif"] = tiff(ycbcr_tags((2, 4), 1, 8), subsampled(ycc, 2, 4, 8))
+    files["tiff_invalid_ycbcr_planar22_37x23.tif"] = tiff(ycbcr_tags((2, 2), 8, planar=2),
+                                                          [zlib.compress(ycc[..., c].tobytes()) for c in range(3)])
+    tags = tiff_tags(37, 23, 8, 4, 6, extra=2)
+    tags[530] = (3, [1, 1])
+    files["tiff_invalid_ycbcr_alpha_37x23.tif"] = tiff(tags, [np.dstack([ycc, gray]).tobytes()])
+    files["tiff_jpeg_invalid_ycbcr_alpha_37x23.tif"] = set_tags(files["tiff_jpeg_pil_rgba_37x23.tif"], {262: 6})
+    return files
 
 
 def tiff_lzw_codes(data: bytes) -> list:
@@ -1495,6 +1655,7 @@ def fixture_set(cv2) -> dict:
     files.update(pam_fixtures(cv2))
     files.update(tiff_fixtures(cv2))
     files.update(jpeg_tiff_fixtures(cv2))
+    files.update(colour_tiff_fixtures(cv2))
     return files
 
 

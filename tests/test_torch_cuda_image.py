@@ -308,9 +308,9 @@ def test_gif_kernels_equal_plain(cuda_device, name):
     """K9 then K8 on each GIF fixture: one launch each, equal to the plain versions."""
     gif = codec.parse_gif(_bytes(name))
     before = (cuda_image.lzw_decode.launches, cuda_image.raw_expand.launches)
-    got = cuda_image.decode_lzw_batch([gif], [], cuda_device)[0]
+    got = cuda_image.decode_raw_batch([gif], [], [], cuda_device)[0]
     assert (cuda_image.lzw_decode.launches, cuda_image.raw_expand.launches) == (before[0] + 1, before[1] + 1)
-    assert torch.equal(got.cpu(), cuda_image.decode_lzw_batch([gif], [], torch.device("cpu"))[0])
+    assert torch.equal(got.cpu(), cuda_image.decode_raw_batch([gif], [], [], torch.device("cpu"))[0])
 
 
 @pytest.mark.parametrize("name", sorted(RECORD["invalid"]))
@@ -342,7 +342,7 @@ def _tiffs(names):
 
 def _jpeg_chunk_pixels(tif, device):
     """A TIFF's JPEG chunks through K1 and the fused K2 + K3 (their plain versions on the
-    CPU), as decode_images feeds them to decode_lzw_batch."""
+    CPU), as decode_images feeds them to decode_raw_batch."""
     chunks = codec.tiff_jpeg_chunks([tif])
     if not chunks:
         return None
@@ -353,42 +353,83 @@ def _jpeg_chunk_pixels(tif, device):
 
 @pytest.mark.parametrize("name", TIFFS)
 def test_tiff_kernels_equal_plain(cuda_device, name):
-    """K9 (its TIFF flavour, where the TIFF has LZW chunks), K10 and K8 on each TIFF
-    fixture (a JPEG-in-TIFF's chunks decoded first by the JPEG kernels): one launch each,
-    equal to the plain versions."""
+    """K9 (its TIFF flavour, where the TIFF has LZW chunks), K10 (where a chunk has a
+    predictor or a byte swap) and K8 on each TIFF fixture (a JPEG-in-TIFF's chunks decoded
+    first by the JPEG kernels): one launch each, equal to the plain versions."""
     tif = codec.parse_tiff(_bytes(name))
-    lzw = any(c.decoded is None and c.jpeg is None for c in tif.chunks)
+    lzw = any(c.decoded is None and c.jpeg is None and not c.missing for c in tif.chunks)
+    k10 = codec.raw_batch([], [tif], []).works > 0
     pixels = _jpeg_chunk_pixels(tif, cuda_device)
     before = (cuda_image.lzw_decode.launches, cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches)
-    got = cuda_image.decode_lzw_batch([], [tif], cuda_device, pixels)[0]
+    got = cuda_image.decode_raw_batch([], [tif], [], cuda_device, pixels)[0]
     after = (cuda_image.lzw_decode.launches, cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches)
-    assert after == (before[0] + lzw, before[1] + 1, before[2] + 1)
+    assert after == (before[0] + lzw, before[1] + k10, before[2] + 1)
     cpu = torch.device("cpu")
-    assert torch.equal(got.cpu(), cuda_image.decode_lzw_batch([], [tif], cpu, _jpeg_chunk_pixels(tif, cpu))[0])
+    assert torch.equal(got.cpu(), cuda_image.decode_raw_batch([], [tif], [], cpu, _jpeg_chunk_pixels(tif, cpu))[0])
 
 
 def test_tiff_lzw_flavour_and_assembly_equal_plain_in_one_launch(cuda_device):
     """Every TIFF fixture's LZW chunks (the stopping rules' fixtures among them) and the
-    GIF fixtures in one K9 launch, then every TIFF's chunks in one K10 launch: statuses,
-    chunk bytes and image buffers equal the plain versions'."""
+    GIF fixtures in one K9 launch, then every TIFF chunk with a predictor or a swap in
+    one K10 launch, then every image in one K8 launch: statuses, the call's device
+    buffer and the RGB equal the plain versions'."""
     tiffs = _tiffs(TIFFS)
     gifs = _parsed_gifs()
-    tiff = codec.tiff_batch(tiffs)
-    batch = codec.gif_batch(gifs, tiff)
-    out = torch.zeros(batch.total_indices, dtype=torch.uint8)
-    out[batch.frame_indices:] = tiff.decoded
-    out_d = out.to(cuda_device)
-    _, status = cuda_image.lzw_decode(batch.to(cuda_device), out=out_d)
-    _, want_status = cuda_image.lzw_decode(batch, out=out)
+    batch = codec.raw_batch(gifs, tiffs, [])
+    cpu = torch.device("cpu")
+    buf, want_buf = cuda_image.upload(batch, cuda_device), cuda_image.upload(batch, cpu)
+    _, status = cuda_image.lzw_decode(batch.lzw.to(cuda_device), out=buf[batch.lzw_at:])
+    _, want_status = cuda_image.lzw_decode(batch.lzw, out=want_buf[batch.lzw_at:])
     assert torch.equal(status.cpu(), want_status)
     assert set(want_status[len(gifs):].tolist()) == {codec.GIF_OK, codec.GIF_LZW_FAILED}
-    assert torch.equal(out_d[batch.frame_indices:].cpu(), out[batch.frame_indices:])
-    before = cuda_image.tiff_assemble.launches
-    got = cuda_image.tiff_assemble(out_d[batch.frame_indices:], tiff.chunks.to(cuda_device), status[len(gifs):],
-                                   tiff.image_bytes)
-    assert cuda_image.tiff_assemble.launches == before + 1
-    want = cuda_image.tiff_assemble(out[batch.frame_indices:], tiff.chunks, want_status[len(gifs):], tiff.image_bytes)
-    assert torch.equal(got.cpu(), want)
+    # the host's bytes and K9's TIFF chunks (a failed GIF frame's indices are unspecified)
+    chunk_bytes = [slice(0, batch.host.size), slice(batch.lzw_at + batch.lzw.frame_indices, batch.total)]
+    assert all(torch.equal(buf[r].cpu(), want_buf[r]) for r in chunk_bytes)
+    before = (cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches)
+    cuda_image.tiff_assemble(buf, batch, status)
+    cuda_image.tiff_assemble(want_buf, batch, want_status)
+    assert all(torch.equal(buf[r].cpu(), want_buf[r]) for r in chunk_bytes)
+    jpeg = codec.jpeg_batch(codec.tiff_jpeg_chunks(tiffs))
+    pixels = cuda_image.idct_color(cuda_image.decode_entropy(jpeg.to(cuda_device))[0], jpeg.to(cuda_device))
+    got = cuda_image.raw_expand(buf, batch, pixels).cpu()
+    assert (cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches) == (before[0] + 1, before[1] + 1)
+    want = cuda_image.raw_expand(want_buf, batch, pixels.cpu())
+    for i, (at, h, w) in enumerate(batch.out):  # each image's RGB (the bytes between them pad to 16)
+        if i >= len(gifs) or want_status[i] == codec.GIF_OK:  # a failed GIF frame's indices are unspecified
+            assert torch.equal(got[at:at + h * w * 3], want[at:at + h * w * 3])
+
+
+def test_a_mixed_call_is_one_k8_launch(cuda_device):
+    """BMP, PxM, PAM, Sun raster, PFM, HDR, GIF and TIFF fixtures of every layout (strips,
+    tiles, planes, the predictor, big-endian swaps, JPEG chunks, YCbCr, CIELab) in one
+    decode_images call: one launch each of K9, K10 and K8, every image equal to the plain
+    versions' and to cv2's digest."""
+    names = [n for n in DECODABLE if not n.endswith((".jpg", ".png"))]
+    blobs = [_bytes(n) for n in names]
+    before = (cuda_image.lzw_decode.launches, cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches)
+    images = codec.decode_images(blobs, cuda_device)
+    after = (cuda_image.lzw_decode.launches, cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches)
+    assert after == (before[0] + 1, before[1] + 1, before[2] + 1)
+    for name, img, want in zip(names, images, codec.decode_images(blobs, "cpu")):
+        assert torch.equal(img.cpu(), want), name
+        assert sha(img.cpu().numpy()) == DIGESTS[name]["rgb_sha256"], name
+
+
+def test_32_large_bmps_and_tiffs_in_one_launch(cuda_device):
+    """32 640x480 24-bit BMPs and 32 copies of cv2's 640x480 LZW TIFF (120 strips with the
+    predictor) in one decode_images call: one K8 launch, one of K10, each image equal to
+    its plain decode."""
+    from ssd_object_detection_tpu_torch.tools import make_image_fixtures as fx
+
+    rng = np.random.default_rng(19)
+    bmps = [fx.bmp(rng.integers(0, 256, (480, 640, 3)), 24) for _ in range(2)] * 16
+    tiff = _bytes("tiff_cv2_640x480.tif")
+    before = (cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches)
+    images = codec.decode_images(bmps + [tiff] * 32, cuda_device)
+    assert (cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches) == (before[0] + 1, before[1] + 1)
+    want = {id(b): codec.decode_image(b, "cpu") for b in bmps[:2] + [tiff]}
+    for blob, img in zip(bmps + [tiff] * 32, images):
+        assert torch.equal(img.cpu(), want[id(blob)])
 
 
 def test_jpeg_in_tiffs_decode_in_the_jpeg_launches(cuda_device):

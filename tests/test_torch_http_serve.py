@@ -164,7 +164,9 @@ def test_http_round_trip(service):
                                   "bigtiff_le_8x6.tif", "bigtiff_be_8x6.tif", "tiff_cv2_37x23.tif",
                                   "tiff_planar_37x23.tif", "tiff_refused_group4_37x23.tif",
                                   "tiff_jpeg_strips_420_67x45.tif", "tiff_jpeg_pil_ycbcr_37x23.tif",
-                                  "tiff_invalid_lzma_37x23.tif"])
+                                  "tiff_invalid_lzma_37x23.tif", "tiff_ycbcr22_lzw_37x23.tif",
+                                  "tiff_pil_lab_jpeg_37x23.tif", "tiff_jpeg_pil_cmyk_37x23.tif",
+                                  "tiff_refused_ycbcr44_odd_units_33x17.tif"])
 def test_http_pam_and_tiff_answered_or_refused(service, name):
     """A PAM, TIFF, JPEG-in-TIFF or BigTIFF body is answered with 200 and the detections
     the service gives the pixels cv2 decodes from it (the JAX package's

@@ -713,12 +713,15 @@ def test_repeated_first_scans_decode_as_cv2(name, case):
 FORMATS = ["bmp_rle8_37x23.bmp", "pxm_p6_16bit_37x23.ppm", "ras_cmap8_37x23.ras", "pfm_rgb_37x23.pfm",
            "corrupt_cut_eoi_500x333.jpg", "corrupt_ff00_run_500x333.jpg", "corrupt_progressive_scan_short_83x61.jpg",
            "progressive_cut_eoi_83x61.jpg", "bmp_pal4_37x23.bmp", "pxm_p1_37x23.pbm", "gif_transparent_37x23.gif",
-           "gif_interlaced_100x80.gif", "hdr_cv2_rle_37x23.hdr", "hdr_flat_exponents_9x6.hdr"]
+           "gif_interlaced_100x80.gif", "hdr_cv2_rle_37x23.hdr", "hdr_flat_exponents_9x6.hdr",
+           "tiff_ycbcr42_packbits_37x23.tif", "tiff_pil_lab_lzw_37x23.tif", "tiff_jpeg_pil_cmyk_37x23.tif",
+           "tiff_jpeg_planar_ycbcr_67x45.tif"]
 
 
 def test_a_root_of_every_format_packs_as_the_jax_package(tmp_path):
     """A COCO train split whose .jpg files hold a BMP, a PPM, a Sun raster, a PFM, GIFs,
-    HDRs and corrupt JPEGs: the port's pack_dataset (the decode feed, on the CPU) writes
+    HDRs, corrupt JPEGs, a YCbCr and a CIELab TIFF, a CMYK JPEG-in-TIFF and one of
+    separate planes: the port's pack_dataset (the decode feed, on the CPU) writes
     images.u8 and gt.npz byte-equal to the JAX package's, which reads them with cv2."""
     root = tmp_path / "root"
     os.makedirs(root / "annotations")
@@ -814,8 +817,23 @@ def _tiff_case(case: str) -> bytes:
         return fx.tiff(fx.tiff_tags(37, 23, 8, 3, 2, predictor=2), [rgb.tobytes()])
     if case == "predictor_3_invalid":
         return fx.tiff(fx.tiff_tags(37, 23, 8, 3, 2, 5, predictor=3), [lzw(rgb.tobytes())])
-    if case == "ycbcr_refused":
+    if case == "ycbcr_default_subsampling":  # no YCbCrSubsampling: libtiff's 2 x 2 data units
         return fx.tiff(fx.tiff_tags(37, 23, 8, 3, 6), [rgb.tobytes()])
+    if case == "ycbcr44_odd_units_refused":  # cv2 reads bytes past what libtiff decoded
+        t = fx.tiff_tags(33, 17, 8, 3, 6, rows=4)
+        t[530] = (3, [4, 4])
+        return fx.tiff(t, [rng.integers(0, 256, 162, dtype=np.uint8).tobytes() for _ in range(5)])
+    if case == "ycbcr_luma_green_zero_invalid":
+        t = fx.tiff_tags(37, 23, 8, 3, 6)
+        t[530], t[529] = (3, [1, 1]), fx.rationals((0.5, 0, 0.5))
+        return fx.tiff(t, [rgb.tobytes()])
+    if case == "lab_white_y_zero_invalid":
+        t = fx.tiff_tags(37, 23, 8, 3, 8)
+        t[318] = fx.rationals((0.3, 0))
+        return fx.tiff(t, [rgb.tobytes()])
+    if case == "lab_every_value":  # 8-bit CIELab: every L, and a and b at random
+        lab = np.stack([np.arange(23 * 37) % 256, rng.integers(0, 256, 23 * 37), rng.integers(0, 256, 23 * 37)], -1)
+        return fx.tiff(fx.tiff_tags(37, 23, 8, 3, 8), [lab.astype(np.uint8).tobytes()])
     if case == "uncompressed_tiles_refused":
         t = fx.tiff_tags(32, 16, 8, 4, 2, tile_width=16, tile_length=16)
         del t[278]
@@ -838,9 +856,10 @@ def _tiff_case(case: str) -> bytes:
 TIFF_CASES = ["rgb16_rounded", "gray16_high_byte", "gray16_planes_rounded", "rgba_extra0", "rgba_extra1",
               "rgba_extra2", "rgba_extra2_16", "gray_alpha_planes_premultiplied", "palette_4bit",
               "palette_16bit_invalid", "gray_4bit_invalid", "cmyk16_invalid", "five_samples_invalid",
-              "no_photometric_invalid", "predictor_ignored_uncompressed", "predictor_3_invalid", "ycbcr_refused",
+              "no_photometric_invalid", "predictor_ignored_uncompressed", "predictor_3_invalid", "ycbcr_default_subsampling",
               "uncompressed_tiles_refused", "old_style_lzw_refused", "strips_short_count_zeroed",
-              "strip_offsets_short_invalid", "lzw_tile_cut_at_edges"]
+              "strip_offsets_short_invalid", "lzw_tile_cut_at_edges", "ycbcr44_odd_units_refused",
+              "ycbcr_luma_green_zero_invalid", "lab_white_y_zero_invalid", "lab_every_value"]
 
 
 @pytest.mark.parametrize("case", TIFF_CASES)
@@ -935,6 +954,84 @@ def test_random_tiffs_as_cv2(seed):
     rng = np.random.default_rng(1700 + seed)
     for i in range(60):
         data = _random_tiff(rng)
+        want = _cv2(data)
+        try:
+            got = codec.decode_image(data, "cpu").numpy()
+        except codec.UnsupportedImage:
+            assert want is not None, i
+            continue
+        except ValueError:
+            assert want is None, i
+            continue
+        assert want is not None, i
+        np.testing.assert_array_equal(got, want, err_msg=str(i))
+
+
+def _random_colour_tiff(rng) -> bytes:
+    """A YCbCr or CIELab TIFF (now and then ICCLab or ITULab) of random tags: byte order,
+    BigTIFF, size, bits, samples, planes, compression, predictor, extra samples,
+    YCbCrSubsampling (missing, valid, or one libtiff has no put routine for),
+    YCbCrCoefficients, ReferenceBlackWhite, WhitePoint, strips of any height or tiles,
+    orientation, and now and then a chunk cut short."""
+    w, h = int(rng.integers(1, 40)), int(rng.integers(1, 30))
+    photometric = int(rng.choice([6, 6, 6, 8, 8, 9, 10]))
+    bits = int(rng.choice([8, 8, 8, 8, 16, 4]))
+    spp = int(rng.choice([3, 3, 3, 3, 1, 4]))
+    comp = int(rng.choice([1, 5, 5, 8, 32773]))
+    more = {}
+    if rng.random() < 0.3:
+        more["planar"] = 2
+    if rng.random() < 0.4:
+        more["predictor"] = int(rng.choice([1, 2, 2]))
+    if spp == 4 and rng.random() < 0.7:
+        more["extra"] = [int(rng.choice([0, 1, 2]))]
+    if rng.random() < 0.4:
+        more["orientation"] = int(rng.choice([1, 2, 3, 4, 5, 6, 7, 8]))
+    sub = [(1, 1), (1, 2), (2, 1), (2, 2), (4, 1), (4, 2), (4, 4), (2, 4), None][int(rng.integers(9))]
+    tiled = rng.random() < 0.25 and comp != 1
+    rows = int(rng.integers(1, h + 3))
+    tags = fx.tiff_tags(w, h, bits, spp, photometric, comp, rows=rows, **more)
+    if sub is not None:
+        tags[530] = (3, list(sub))
+    if rng.random() < 0.3:
+        tags[529] = fx.rationals(rng.uniform(0.05, 0.9, 3).round(4))
+    if rng.random() < 0.3:
+        tags[532] = fx.rationals(np.sort(rng.uniform(0, 255, 6).round(2).reshape(3, 2), 1).reshape(-1))
+    if rng.random() < 0.3:
+        tags[318] = fx.rationals(rng.uniform(0.2, 0.45, 2).round(4))
+    hs, vs = sub or (2, 2)
+    planar = more.get("planar", 1) == 2
+    units = photometric == 6 and not planar and spp == 3 and bits == 8
+    samples, planes = (1, spp) if planar else (spp, 1)
+    if tiled:
+        tw, th = int(rng.choice([16, 32])), int(rng.choice([8, 16]))
+        tags.update({322: (3, [tw]), 323: (3, [th])})
+        del tags[278]
+        boxes = [(th, tw)] * (-(-h // th) * -(-w // tw))
+    else:
+        boxes = [(min(rows, h - y), w) for y in range(0, h, rows)]
+    chunks = []
+    for _ in range(planes):
+        for r, c in boxes:
+            n = -(-r // vs) * -(-c // hs) * (hs * vs + 2) if units else r * -(-c * samples * bits // 8)
+            raw = (rng.integers(0, 256, n) if rng.random() < 0.5 else np.cumsum(rng.integers(0, 3, n)) % 256)
+            raw = raw.astype(np.uint8).tobytes()
+            chunks.append({1: raw, 5: fx.tiff_lzw_pack(fx.tiff_lzw_codes(raw)), 8: zlib.compress(raw),
+                           32773: fx.packbits(raw)}[comp])
+    if planes == 1 and rng.random() < 0.1:
+        i = int(rng.integers(len(chunks)))
+        chunks[i] = chunks[i][:int(rng.integers(0, len(chunks[i]) + 1))]
+    return fx.tiff(tags, chunks, big_endian=bool(rng.random() < 0.4), big=bool(rng.random() < 0.3), tiled=tiled)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_colour_tiffs_as_cv2(seed):
+    """60 seeded random YCbCr and CIELab TIFFs a seed: the port decodes each as cv2 does,
+    or raises ValueError exactly where cv2 returns None, or UnsupportedImage where cv2
+    reads it."""
+    rng = np.random.default_rng(1900 + seed)
+    for i in range(60):
+        data = _random_colour_tiff(rng)
         want = _cv2(data)
         try:
             got = codec.decode_image(data, "cpu").numpy()

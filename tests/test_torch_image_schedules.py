@@ -165,8 +165,8 @@ def _tiff_lzw_batch():
     among them), with the GIF fixtures before them in one table."""
     names = sorted(n for n in os.listdir(FIXTURES) if n.endswith(".tif") and "invalid" not in n
                    and "refused" not in n)
-    tiff = codec.tiff_batch([codec.parse_tiff((Path(FIXTURES) / n).read_bytes()) for n in names])
-    return codec.gif_batch(_parsed_gifs(GIFS[:3]), tiff), tiff
+    tiffs = [codec.parse_tiff((Path(FIXTURES) / n).read_bytes()) for n in names]
+    return codec.raw_batch(_parsed_gifs(GIFS[:3]), tiffs, []).lzw, tiffs
 
 
 @pytest.mark.parametrize("window", WINDOWS)
@@ -200,7 +200,7 @@ def tile_inputs():
     batch = codec.jpeg_batch(images)
     coef, _ = cuda_image.decode_entropy(batch)
     planes = plain_image.idct(coef.numpy(), batch.qtables.numpy(), batch.comps.numpy())
-    return images, coef.numpy(), plain_image.color(planes, batch.images.numpy(), batch.total_pixels)
+    return images, coef.numpy(), plain_image.color(planes, batch.images.numpy(), batch.total_bytes)
 
 
 @pytest.mark.parametrize("tile_hw", [(codec.JPEG_TILE_H, codec.JPEG_TILE_W), (8, 8), (16, 24), (40, 56)])

@@ -36,6 +36,11 @@ MIXED = ["coco_500x333_444.jpg", "coco_640x480_progressive.jpg", "coco_500x333_c
          "ycck_83x61.jpg", "sampling_410_83x61.jpg", "progressive_gray_61x83.jpg", "gif_cv2_100x80.gif",
          "hdr_cv2_rle_37x23.hdr"]
 GIFS_HDRS = sorted(n for n in DIGESTS if n.endswith((".gif", ".hdr")))
+# YCbCr and CIELab TIFFs, and JPEG-in-TIFFs of 2 and 4 samples and of separate planes
+COLOUR_TIFFS = sorted(n for n in DIGESTS if n.startswith(("tiff_ycbcr", "tiff_pil_ycbcr", "tiff_pil_lab", "tiff_lab",
+                                                          "tiff_jpeg_pil_cmyk", "tiff_jpeg_pil_rgba",
+                                                          "tiff_jpeg_pil_la", "tiff_jpeg_planar", "tiff_jpeg_cmyk",
+                                                          "tiff_jpeg_gray_alpha")) and n not in REFUSED)
 
 
 def _bytes(name: str) -> bytes:
@@ -55,6 +60,20 @@ def test_gif_and_hdr_decode_as_the_jax_package(name):
     versions here) against the JAX package's, which reads it with cv2."""
     got = decode_image_bytes(_bytes(name), "cpu")
     np.testing.assert_array_equal(got, jax_decode(_bytes(name)))
+
+
+@pytest.mark.parametrize("name", COLOUR_TIFFS)
+def test_colour_tiffs_decode_as_the_jax_package(name):
+    """Every YCbCr and CIELab TIFF fixture (each subsampling under none, LZW, PackBits and
+    Deflate; CIELab under each compression cv2 reads it in, JPEG among them) and every
+    JPEG-in-TIFF of CMYK, RGB plus alpha, gray plus alpha and separate planes, through the
+    port's decode_image_bytes (K8's plain version reading the chunks) against the JAX
+    package's, which reads it with cv2, and against cv2's recorded digest."""
+    import hashlib
+
+    got = decode_image_bytes(_bytes(name), "cpu")
+    np.testing.assert_array_equal(got, jax_decode(_bytes(name)))
+    assert hashlib.sha256(np.ascontiguousarray(got).tobytes()).hexdigest() == DIGESTS[name]["rgb_sha256"]
 
 
 def _root(path, names, blobs=None):
@@ -147,7 +166,10 @@ def test_a_root_holding_a_pam_packs_it(tmp_path, body):
                                     ["tiff_planar_37x23.tif", "tiff_pil_cmyk_deflate_37x23.tif",
                                      "tiff_orientation3_37x23.tif", "bigtiff_le_8x6.tif"],
                                     ["tiff_jpeg_strips_420_67x45.tif", "tiff_jpeg_pil_ycbcr_37x23.tif",
-                                     "tiff_jpeg_gray_tiles_67x45.tif", "tiff_jpeg_cut_67x45.tif"]])
+                                     "tiff_jpeg_gray_tiles_67x45.tif", "tiff_jpeg_cut_67x45.tif"],
+                                    ["tiff_ycbcr22_lzw_37x23.tif", "tiff_pil_lab_jpeg_37x23.tif",
+                                     "tiff_jpeg_pil_cmyk_37x23.tif", "tiff_jpeg_planar_rgb_67x45.tif",
+                                     "tiff_lab16_be_37x23.tif", "tiff_jpeg_pil_rgba_37x23.tif"]])
 def test_a_root_holding_tiffs_packs_them(tmp_path, bodies):
     """TIFF, BigTIFF and JPEG-in-TIFF bodies under .jpg names in a root: the decode feed
     packs them, the caches byte-equal to the JAX package's (which reads them with
@@ -197,7 +219,7 @@ def test_a_root_holding_turned_tiffs_packs_as_cv2_imread(tmp_path, orientation):
                for f in os.listdir(os.path.join(root, "train2017"))) == len(turned)
 
 
-@pytest.mark.parametrize("body", ["tiff_refused_ycbcr_37x23.tif", "tiff_refused_group4_37x23.tif",
+@pytest.mark.parametrize("body", ["tiff_refused_ycbcr44_odd_units_33x17.tif", "tiff_refused_group4_37x23.tif",
                                   "other_mif1_8x6.avif", "pam_rgb_alpha_37x23.pam"])
 def test_a_refused_tiff_avif_or_alpha_pam_in_a_root_raises_naming_the_file(tmp_path, body):
     """An uncompressed YCbCr TIFF, a CCITT Group 4 TIFF, an AVIF whose major brand is
