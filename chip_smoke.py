@@ -2001,7 +2001,8 @@ IMAGE_SOURCES = {"jpeg_entropy_decode": f"{PACKAGE}/csrc/jpeg_decode.cu",
                  "raw_expand": f"{PACKAGE}/csrc/raw_image.cu",
                  "lzw_decode": f"{PACKAGE}/csrc/gif_lzw.cu",
                  "tiff_assemble": f"{PACKAGE}/csrc/tiff_assemble.cu",
-                 "ccitt_decode": f"{PACKAGE}/csrc/ccitt_decode.cu"}
+                 "ccitt_decode": f"{PACKAGE}/csrc/ccitt_decode.cu",
+                 "sgilog_decode": f"{PACKAGE}/csrc/sgilog_decode.cu"}
 OLD_K1_MS = 9.6163  # the one-thread-a-segment K1 at 32 x 640x480 4:2:0 (chip_smoke.py, PERF.md run F)
 # the one-block-an-image K6 (every scan, one thread a scan) at 32 x 640x480 progressive
 # (chip_smoke.py, PERF.md run G of that design)
@@ -2169,11 +2170,21 @@ def smooth_report(torch, np, codec, cuda_image, fx, dev, prog_blob: bytes, smoot
     return f"K7 [{card}]: " + "; ".join(parts) + "; timed outputs equal the plain version's"
 
 
-def ccitt_report(torch, np, cuda_image, page, page1_h, page32, ms: float, bound: float, card: str) -> str:
-    """K11 on 32 copies of the 1728x2200 Group 4 page in one launch, bit-equal to 32 of the
-    one page's plain output, and the reckoned chain bound of the serial walk: one
-    dependent table lookup (a code word) a changing element of the page, each at about an
-    L1 hit's 35 cycles of 1.98 GHz (reckoned, not measured)."""
+def ccitt_report(torch, np, codec, cuda_image, dev, blobs, page, page1_h, page32, ms: float, bound: float,
+                 card: str) -> str:
+    """K11 beyond the timed 8-strip page: 32 copies of it in one launch, bit-equal to 32 of
+    the one page's plain output; the same page in one strip (nothing to spread: the walk's
+    cost a code word) and one 37x23 fixture, each bit-equal to the plain version; the cases
+    whose guesses fail (a Group 3 strip without EOLs before strips with them, a Group 4
+    strip whose first row reads past the white reference line) in one launch beside the
+    page, bit-equal, each repaired from its second chunk as ops/fax_schedule_model replays
+    it; and the reckoned chain bounds of the walk: one dependent table lookup (a code word)
+    a changing element, each at about an L1 hit's 35 cycles of 1.98 GHz (reckoned, not
+    measured), for the page's longest strip (the new schedule's) and for the whole page
+    (one strip)."""
+    from ssd_object_detection_tpu_torch.ops import fax_schedule_model
+
+    cpu = torch.device("cpu")
     batch, buf, _ = page32
     before = cuda_image.ccitt_decode.launches
     cuda_image.ccitt_decode(buf, batch)
@@ -2184,13 +2195,78 @@ def ccitt_report(torch, np, cuda_image, page, page1_h, page32, ms: float, bound:
     if not all(torch.equal(g, want) for g in got):
         fail("ccitt_decode: the kernel on 32 pages in one launch differs from its plain version")
     ms32 = cuda_ms(torch, lambda: cuda_image.ccitt_decode(buf, batch), warmup=1, iters=5)
-    bits = np.unpackbits(want.numpy()).reshape(page.height, -1)[:, :page.width]
-    changes = int((np.diff(bits.astype(np.int8), axis=1) != 0).sum() + bits[:, 0].sum() + page.height)
-    chain = changes * 35 / 1.98e9 * 1e3
+
+    def single(name):  # (graph ms, plain ms) of K11 on one fixture alone, held bit-equal
+        t = codec.parse_tiff(blobs[name])
+        b = codec.raw_batch([], [t], [])
+        d, h = cuda_image.upload(b, dev), cuda_image.upload(b, cpu)
+        cuda_image.ccitt_decode(d, b)
+        start = time.perf_counter()
+        cuda_image.ccitt_decode(h, b)
+        plain = (time.perf_counter() - start) * 1e3
+        if not torch.equal(d.cpu(), h):
+            fail(f"ccitt_decode: the kernel on {name} differs from its plain version")
+        return graph_ms(torch, lambda: cuda_image.ccitt_decode(d, b), calls=5, replays=3), plain
+
+    one_ms, one_plain = single("tiff_ccitt_g4_page_one_strip_1728x2200.tif")
+    small_ms, _ = single("tiff_ccitt_g4_strips_37x23.tif")
+    names = ["tiff_ccitt_noeol_then_eol_37x23.tif", "tiff_ccitt_g4_page_1728x2200.tif",
+             "tiff_ccitt_g4_past_white_37x23.tif"]
+    b = codec.raw_batch([], [codec.parse_tiff(blobs[n]) for n in names], [])
+    d, h = cuda_image.upload(b, dev), cuda_image.upload(b, cpu)
+    records = torch.zeros((b.faxes, codec.FAX_RECORD_INTS), dtype=torch.int32, device=dev)
+    cuda_image.ccitt_decode(d, b, records)
+    cuda_image.ccitt_decode(h, b)
+    if not torch.equal(d.cpu(), h):
+        fail("ccitt_decode: the kernel on the cases whose guesses fail differs from its plain version")
+    model = h.numpy().copy()
+    model[b.fax_out:] = 0
+    report = fax_schedule_model.ccitt_schedule(model, b.fax_streams, model)
+    repairs = [int(records[f, codec.FR_REPAIR_FROM]) for f in report]
+    if repairs != [0 if r["repair_from"] is None else r["repair_from"] + 1 for r in report.values()] or \
+            repairs != [2, 0, 2]:
+        fail(f"ccitt_decode: repairs from chunks {repairs}, the replay's {report}")
+    rows = np.unpackbits(want.numpy()).reshape(page.height, -1)[:, :page.width]
+    per_row = (np.diff(rows.astype(np.int8), axis=1) != 0).sum(1) + rows[:, 0] + 1
+    strip_rows = page.chunks[0].rows
+    longest = max(int(per_row[y:y + strip_rows].sum()) for y in range(0, page.height, strip_rows))
+    chain, whole = longest * 35 / 1.98e9 * 1e3, int(per_row.sum()) * 35 / 1.98e9 * 1e3
     return (f"K11 [{card}]: 32 pages in one launch {ms32:.4f} ms ({ms32 / ms:.3f} x one; byte bound "
-            f"{32 * bound:.6f} ms); reckoned chain bound of one page's walk {chain:.4f} ms ({changes} changing "
-            f"elements, a lookup each at 35 cycles), {chain / ms * 100:.1f} % of its time; timed outputs equal "
-            f"the plain version's")
+            f"{32 * bound:.6f} ms); the page in one strip {one_ms:.4f} ms from a CUDA graph (plain {one_plain:.1f} "
+            f"ms), tiff_ccitt_g4_strips_37x23.tif {small_ms:.4f} ms; the guesses of the noeol-then-EOL and "
+            f"past-the-white-line cases repaired from chunk 2 as the replay repairs them, the page beside them "
+            f"not; reckoned chain bounds: the page's longest strip {chain:.4f} ms ({longest} changing elements, "
+            f"a lookup each at 35 cycles; {chain / ms * 100:.1f} % of the 8-strip time), the whole page "
+            f"{whole:.4f} ms ({int(per_row.sum())}; {whole / one_ms * 100:.1f} % of the one-strip time); timed "
+            f"outputs equal the plain version's")
+
+
+def sgilog_640x480(np, fx, rgb) -> bytes:
+    """A 640x480 LogLuv TIFF (SGILog, strips of 16 rows) of `rgb`'s pixels as linear XYZ,
+    encoded with the fixture tool's tif_luv.c encoder."""
+    lin = (rgb.astype(np.float64) / 255) ** 2.2
+    xyz = lin @ np.array([[0.4124, 0.3576, 0.1805], [0.2126, 0.7152, 0.0722], [0.0193, 0.1192, 0.9505]]).T
+    words = fx.logluv32(xyz)
+    strips = [b"".join(fx.sgilog_planes(r, 4) for r in words[y:y + 16]) for y in range(0, words.shape[0], 16)]
+    return fx.tiff(fx.tiff_tags(words.shape[1], words.shape[0], 16, 3, 32845, 34676, rows=16), strips)
+
+
+def sgilog_report(torch, codec, cuda_image, dev, raw_batch, tiffs, names, card: str) -> str:
+    """K12 on every SGILog fixture's chunks in one launch, from a CUDA graph, beside its
+    plain version on them, bit-equal."""
+    tif_names = [n for n in names if n.endswith(".tif")]
+    sgi = [t for n, t in zip(tif_names, tiffs) if n.startswith(("tiff_sgilog_", "tiff_sgilog24_"))]
+    b = codec.raw_batch([], sgi, [])
+    d, h = cuda_image.upload(b, dev), cuda_image.upload(b, torch.device("cpu"))
+    cuda_image.sgilog_decode(d, b)
+    start = time.perf_counter()
+    cuda_image.sgilog_decode(h, b)
+    plain = (time.perf_counter() - start) * 1e3
+    if not torch.equal(d.cpu(), h):
+        fail("sgilog_decode: the kernel on the SGILog fixtures differs from its plain version")
+    ms = graph_ms(torch, lambda: cuda_image.sgilog_decode(d, b), calls=10, replays=3)
+    return (f"K12 [{card}]: the {len(sgi)} SGILog fixtures' {b.sgis} chunks in one launch {ms:.4f} ms from a CUDA "
+            f"graph, plain {plain:.1f} ms; outputs equal the plain version's")
 
 
 def expand_report(torch, cuda_image, card: str, ms: float, b2b: float, bound: float, bmp1, bmp32, tif1, tif1_h,
@@ -2500,13 +2576,23 @@ def image_phase(torch, np, dev, card: str) -> dict:
     launched11 = cuda_image.ccitt_decode.launches
     cuda_image.ccitt_decode(buf, raw_batch)
     cuda_image.ccitt_decode(want_buf, raw_batch)
-    fax_region = slice(raw_batch.fax_out, raw_batch.total)
+    fax_region = slice(raw_batch.fax_out, raw_batch.fax_out + raw_batch.fax_bytes)
     if cuda_image.ccitt_decode.launches != launched11 + 1 or raw_batch.faxes == 0:
         fail(f"K11 over every TIFF fixture's {raw_batch.faxes} CCITT and ThunderScan chunks: not one launch")
     if not torch.equal(buf[fax_region].cpu(), want_buf[fax_region]):
         fail("the CCITT and ThunderScan kernel on every TIFF fixture's chunks in one launch differs from its plain "
              "version")
     err["ccitt_decode"] = float(max_diff(buf[fax_region], want_buf[fax_region]))
+    # every TIFF fixture's SGILog chunks in one K12 launch
+    launched12 = cuda_image.sgilog_decode.launches
+    cuda_image.sgilog_decode(buf, raw_batch)
+    cuda_image.sgilog_decode(want_buf, raw_batch)
+    sgi_region = slice(raw_batch.sgi_out, raw_batch.total)
+    if cuda_image.sgilog_decode.launches != launched12 + 1 or raw_batch.sgis == 0:
+        fail(f"K12 over every TIFF fixture's {raw_batch.sgis} SGILog chunks: not one launch")
+    if not torch.equal(buf[sgi_region].cpu(), want_buf[sgi_region]):
+        fail("the SGILog kernel on every TIFF fixture's chunks in one launch differs from its plain version")
+    err["sgilog_decode"] = float(max_diff(buf[sgi_region], want_buf[sgi_region]))
     tiff_status = want_status[len(gifs):]
     launched = (cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches)
     cuda_image.tiff_assemble(buf, raw_batch, gif_status)
@@ -2528,9 +2614,9 @@ def image_phase(torch, np, dev, card: str) -> dict:
         fail("the raw image kernel on every GIF, TIFF and raw fixture in one launch differs from its plain version")
     raw_err = max([raw_err] + [max_diff(expanded[r], want_expanded[r]) for r in spans])
     if (batch_launches["raw_expand"] != 1 or batch_launches["tiff_assemble"] != 1 or batch_launches["lzw_decode"] != 1
-            or batch_launches["ccitt_decode"] != 1):
-        fail(f"every fixture in one decode_images call: launches {batch_launches}, expected one K9, one K11, one K10 "
-             f"and one K8")
+            or batch_launches["ccitt_decode"] != 1 or batch_launches["sgilog_decode"] != 1):
+        fail(f"every fixture in one decode_images call: launches {batch_launches}, expected one K9, one K11, one "
+             f"K12, one K10 and one K8")
     err["png_unfilter_expand"] = float(png_err)
     err["raw_expand"] = float(raw_err)
     err["lzw_decode"] = float(lzw_err)
@@ -2563,7 +2649,8 @@ def image_phase(torch, np, dev, card: str) -> dict:
           f"through K9 in one launch (GIF statuses {gif_statuses}, TIFF chunk statuses "
           f"{sorted(collections.Counter(tiff_status.tolist()).items())}), {raw_batch.works} of the TIFFs' "
           f"{raw_batch.chunks.shape[0]} chunks ({raw_batch.k10_rows} rows) through K10 in one launch, "
-          f"{raw_batch.faxes} CCITT and ThunderScan chunks through K11 in one launch, "
+          f"{raw_batch.faxes} CCITT and ThunderScan chunks through K11 in one launch, {raw_batch.sgis} SGILog "
+          f"chunks through K12 in one launch, "
           f"{raw_batch.images} GIF, TIFF and raw fixtures through K8 in one launch ({raw_batch.tiles} CTAs), "
           f"{len(pngs)} PNG fixtures through K5 in one call, {len(record['invalid'])} fixtures cv2 returns None for "
           f"raising ValueError")
@@ -2577,7 +2664,7 @@ def image_phase(torch, np, dev, card: str) -> dict:
           f"{float(fixture_rounds[fixture_rounds > 0].float().mean()):.2f} over "
           f"{int((fixture_rounds > 0).sum())} segments; subsequences its repair decoded one after another: "
           f"max {int(fixture_walked.max())} a segment, {int(fixture_walked.sum())} in all), K4 (uint8 linear, "
-          f"float32 linear, area), K5, K9, K11, K10 and K8 equal to theirs ({len(tiffs)} TIFFs and BigTIFFs among the "
+          f"float32 linear, area), K5, K9, K11, K12, K10 and K8 equal to theirs ({len(tiffs)} TIFFs and BigTIFFs among the "
           f"fixtures, {len(jpeg_tiffs)} JPEG-in-TIFFs whose chunks went through K1 and the fused K2 + K3 in the "
           f"JPEGs' launches: decode_images of every fixture launched {batch_launches}; their 300x300 resizes in "
           f"{k4_batch_launches} resize_batch launches equal one resize each); {len(REFUSED)} fixtures refused "
@@ -2636,6 +2723,9 @@ def image_phase(torch, np, dev, card: str) -> dict:
     page = codec.parse_tiff(blobs["tiff_ccitt_g4_page_1728x2200.tif"])
     page1, page1_h, page32 = expand_inputs([], [page], dev), expand_inputs([], [page], cpu), \
         expand_inputs([], [page] * 32, dev)
+    # K12 on a 640x480 LogLuv TIFF of 16-row strips (the same pixels as XYZ, encoded here)
+    sgi_tif = codec.parse_tiff(sgilog_640x480(np, fx, rgb16))
+    sgi1, sgi1_h = expand_inputs([], [sgi_tif], dev), expand_inputs([], [sgi_tif], cpu)
     # K6 and K7 from the coefficients the kernels before them leave
     prog_first = cuda_image.entropy_decode(prog_dev)
     prog_first_host = cuda_image.entropy_decode(prog_host)
@@ -2661,6 +2751,8 @@ def image_phase(torch, np, dev, card: str) -> dict:
         "tiff_assemble": lambda: cuda_image.tiff_assemble(tif_timed, tif1[0], tif1[2]),
         # into the zeroed output again at every call (it sets the same bits): the same work
         "ccitt_decode": lambda: cuda_image.ccitt_decode(page1[1], page1[0]),
+        # into the zeroed output again at every call (it writes the same words): the same work
+        "sgilog_decode": lambda: cuda_image.sgilog_decode(sgi1[1], sgi1[0]),
     }
     fresh_calls = {"tiff_assemble": lambda: cuda_image.tiff_assemble(tif1[1].clone(), tif1[0], tif1[2])}
     clone_ms = {"progressive_entropy": lambda: fresh(prog_first), "block_smooth": lambda: fresh(smooth_in)[0]}
@@ -2677,6 +2769,7 @@ def image_phase(torch, np, dev, card: str) -> dict:
         "lzw_decode": lambda: cuda_image.lzw_decode(gif1_host),
         "tiff_assemble": lambda: cuda_image.tiff_assemble(tif1_h[1].clone(), tif1_h[0], tif1_h[2]),
         "ccitt_decode": lambda: cuda_image.ccitt_decode(page1_h[1].clone(), page1_h[0]),
+        "sgilog_decode": lambda: cuda_image.sgilog_decode(sgi1_h[1].clone(), sgi1_h[0]),
     }
 
     def equal(got, want) -> bool:  # a kernel's output (tensor or tuple of them) against the plain one
@@ -2701,6 +2794,8 @@ def image_phase(torch, np, dev, card: str) -> dict:
                                                                                  for c in tif.chunks)),
         "ccitt_decode": cuda_image.bound_bytes("ccitt", in_bytes=sum(len(c.raw) for c in page.chunks),
                                                out_bytes=sum(c.size for c in page.chunks)),
+        "sgilog_decode": cuda_image.bound_bytes("sgilog", in_bytes=sum(len(c.raw) for c in sgi_tif.chunks),
+                                                out_bytes=sum(c.size for c in sgi_tif.chunks)),
     }
     bound_ops = {"jpeg_idct_color": blocks * IDCT_OPS_PER_BLOCK + prep_host.total_pixels * COLOR_OPS_PER_PIXEL}
     shapes = {"jpeg_entropy_decode": f"32 x 640x480 4:2:0 ({entropy_bytes} entropy bytes, {blocks} blocks)",
@@ -2715,7 +2810,9 @@ def image_phase(torch, np, dev, card: str) -> dict:
               "tiff_assemble": f"cv2's 640x480 LZW TIFF after K9, {len(tif.chunks)} strips of {tif.chunks[0].rows} "
                                f"rows (the predictor undone in place, a warp a row)",
               "ccitt_decode": f"the 1728x2200 Group 4 fax page ({sum(len(c.raw) for c in page.chunks)} coded bytes, "
-                              f"{len(page.chunks)} strips), a CTA an image"}
+                              f"{len(page.chunks)} strips), a CTA a strip",
+              "sgilog_decode": f"a 640x480 LogLuv SGILog TIFF ({sum(len(c.raw) for c in sgi_tif.chunks)} coded bytes, "
+                               f"{len(sgi_tif.chunks)} strips of 16 rows), a warp a strip"}
     out = {}
     for name, fn in calls.items():
         less = cuda_ms(torch, clone_ms[name], warmup=2, iters=10) if name in clone_ms else 0.0
@@ -2852,7 +2949,10 @@ def image_phase(torch, np, dev, card: str) -> dict:
             extra += "; " + smooth_report(torch, np, codec, cuda_image, fx, dev, prog_blob, smooth_in, smooth_dev,
                                           card)
         if name == "ccitt_decode":
-            extra = "; " + ccitt_report(torch, np, cuda_image, page, page1_h, page32, ms, bound, card)
+            extra = "; " + ccitt_report(torch, np, codec, cuda_image, dev, blobs, page, page1_h, page32, ms, bound,
+                                        card)
+        if name == "sgilog_decode":
+            extra = "; " + sgilog_report(torch, codec, cuda_image, dev, raw_batch, tiffs, names, card)
         if name == "progressive_entropy":
             total_ms = out["jpeg_entropy_decode"]["progressive_first_ms"] + ms
             extra += (f"; the whole progressive entropy decode of 32 x 640x480 (K1's first scans + K6's "
@@ -2963,9 +3063,10 @@ ROOT_EXTRAS = ("bmp_rle8_37x23.bmp", "pxm_p6_37x23.ppm", "ras_cmap8_37x23.ras", 
                "pam_16bit_37x23.pam", "tiff_cv2_640x480.tif", "tiff_planar_37x23.tif",
                "tiff_bigtiff_lzw_be_37x23.tif", "tiff_pil_cmyk_deflate_37x23.tif", "tiff_jpeg_strips_420_67x45.tif",
                "tiff_ycbcr22_lzw_37x23.tif", "tiff_pil_lab_lzw_37x23.tif", "tiff_jpeg_pil_cmyk_37x23.tif",
-               "tiff_ccitt_g3_2d_37x23.tif", "tiff_thunderscan_37x23.tif", "tiff_lzw_old_gray_37x23.tif")
+               "tiff_ccitt_g3_2d_37x23.tif", "tiff_thunderscan_37x23.tif", "tiff_lzw_old_gray_37x23.tif",
+               "tiff_sgilog_logluv_37x23.tif", "tiff_tiles_rgba_37x23.tif")
 # a kind cv2 reads and the port refuses, put in place of an image of the root
-ROOT_REFUSED = ("tiff_refused_rgba_tiles_37x23.tif", "uncompressed tiled")
+ROOT_REFUSED = ("tiff_refused_ycbcr44_odd_units_33x17.tif", "no whole number of scanlines")
 # and one the feed skips, as the JAX feed skips what cv2.imread returns None for
 ROOT_SKIPPED = ("tiff_invalid_lzma_37x23.tif",)
 
@@ -3008,14 +3109,14 @@ def jpeg_train_phase(torch, np, dev, card: str, variant: str = "ssd300") -> tupl
     """4e. A COCO-format root of 64 fixture images under .jpg names (baseline,
     progressive, CMYK and 4:1:1 JPEGs, a BMP, a PPM, a Sun raster, a corrupt JPEG, a
     smoothed progressive one, a GIF, an HDR, a PAM, four TIFFs, a YCbCr and a CIELab TIFF,
-    a JPEG-in-TIFF and a CMYK one, a CCITT Group 3 2-D, a ThunderScan and an old-style LZW
-    TIFF) and an
+    a JPEG-in-TIFF and a CMYK one, a CCITT Group 3 2-D, a ThunderScan, an old-style LZW,
+    an SGILog LogLuv and an uncompressed tiled TIFF) and an
     LZMA TIFF (cv2.imread returns None: the feed skips it): cli.train packs it on the card
     (pack_dataset through the decode feed, 8 worker threads, each on its own stream) and
     trains SSD300-VGG16 from the cache at batch 32, bf16, 2 steps; every packed image
-    equals cv2's recorded 300x300 digest. Then the root with ROOT_REFUSED (an uncompressed
-    TIFF of 4-sample tiles) in place of an image is refused naming it. Returns the image
-    kernels' launches and the matcher's."""
+    equals cv2's recorded 300x300 digest. Then the root with ROOT_REFUSED (a YCbCr TIFF of
+    4 x 4 units that are no whole number of scanlines) in place of an image is refused
+    naming it. Returns the image kernels' launches and the matcher's."""
     import yaml
 
     from ssd_object_detection_tpu_torch.cli import train as cli_train
@@ -3052,11 +3153,12 @@ def jpeg_train_phase(torch, np, dev, card: str, variant: str = "ssd300") -> tupl
             fail(f"JPEG train: matcher launches {matcher} (2 steps), loss {loss}")
         # one decode an image: K1 (and K6 a refinement round, K7 where libjpeg smooths, with
         # its DC copy where a component's DCs may change) for a JPEG, K9 then K8 for a GIF,
-        # K9 for a TIFF with LZW chunks, K11 for one with CCITT or ThunderScan chunks, K10 for
-        # one with a chunk to predict or swap, K8 for every image but a JPEG; one resize an image
+        # K9 for a TIFF with LZW chunks, K11 for one with CCITT or ThunderScan chunks, K12 for
+        # one with SGILog chunks, K10 for one with a chunk to predict or swap, K8 for every
+        # image but a JPEG; one resize an image
         fixtures, _ = fixture_record()
         want = {"jpeg_entropy_decode": 0, "progressive_entropy": 0, "block_smooth": 0, "raw_expand": 0,
-                "lzw_decode": 0, "tiff_assemble": 0, "jpeg_idct_color": 0, "ccitt_decode": 0}
+                "lzw_decode": 0, "tiff_assemble": 0, "jpeg_idct_color": 0, "ccitt_decode": 0, "sgilog_decode": 0}
         for i in ids:
             data = open(os.path.join(fixtures, ids[i]), "rb").read()
             kind = codec.image_kind(data)
@@ -3064,8 +3166,9 @@ def jpeg_train_phase(torch, np, dev, card: str, variant: str = "ssd300") -> tupl
             if kind != "jpeg":
                 want["raw_expand"] += 1
                 want["lzw_decode"] += kind == "gif" or (kind == "tiff" and any(
-                    c.decoded is None and c.jpeg is None and c.fax < 0 for c in codec.parse_tiff(data).chunks))
+                    c.decoded is None and c.jpeg is None and c.fax < 0 and not c.sgi for c in codec.parse_tiff(data).chunks))
                 want["ccitt_decode"] += kind == "tiff" and any(c.fax >= 0 for c in codec.parse_tiff(data).chunks)
+                want["sgilog_decode"] += kind == "tiff" and any(c.sgi > 0 for c in codec.parse_tiff(data).chunks)
                 want["tiff_assemble"] += kind == "tiff" and codec.raw_batch([], [codec.parse_tiff(data)], []).works > 0
                 if not chunks:
                     continue

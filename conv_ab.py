@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Interleaved A/B of one hand-written kernel across trees, on one GPU.
 
-    python3 conv_ab.py DIR_A DIR_B [DIR ...] [--kernel conv|matcher|host_prep|refine|resize|raw|tiff|smooth]
+    python3 conv_ab.py DIR_A DIR_B [DIR ...] [--kernel conv|matcher|host_prep|refine|resize|raw|tiff|smooth|fax]
                        [--rounds 2]
                        [--shapes NAME ...] [--out FILE]
 
@@ -81,6 +81,13 @@ component's DCs change), clone_one, clone32 and launch_floor (as for resize). Ea
 gives the tree's K7 launches a call and the ms of each of its kernels as torch.profiler
 kept them ("passes").
 
+--kernel fax is K11 (csrc/ccitt_decode.cu), `ccitt_decode`, on the uploaded call buffer of
+CCITT TIFFs (the fixtures of the tree that holds this script, parsed by each tree's
+codec), checked bit-equal to the plain version: page8 (the 1728x2200 Group 4 page in 8
+strips), page1 (the same page in one strip: nothing to spread across chunks), page8_x32
+(32 of the 8-strip pages in one call) and small (tiff_ccitt_g4_strips_37x23.tif, 37x23 in
+4 strips), and launch_floor (as for resize).
+
 The script prints the card's name and power limit, one line per tree and shape with
 every sample, and writes them all as JSON to FILE. A tree whose process fails (a check,
 a fault) is reported with its error; the others are still timed.
@@ -129,9 +136,15 @@ TIFF_FIXTURE = os.path.join(os.path.dirname(HOST_PREP_JPEG), "tiff_cv2_640x480.t
 # shape name -> (the scan the JPEG is cut in, None: right after the DC scan; copies; time the copy alone)
 SMOOTH_SHAPES = {"launch_floor": None, "one": (4, 1, False), "batch32": (4, 32, False), "ninth32": (8, 32, False),
                  "dc_only32": (None, 32, False), "clone_one": (4, 1, True), "clone32": (4, 32, True)}
+# shape name -> (the fixture, copies in one call), None: the launch floor
+FAX_SHAPES = {"launch_floor": None, "small": ("tiff_ccitt_g4_strips_37x23.tif", 1),
+              "page8": ("tiff_ccitt_g4_page_1728x2200.tif", 1),
+              "page1": ("tiff_ccitt_g4_page_one_strip_1728x2200.tif", 1),
+              "page8_x32": ("tiff_ccitt_g4_page_1728x2200.tif", 32)}
 SHAPE_NAMES = {"conv": [s[0] for s in CONV_SHAPES], "matcher": list(MATCHER_SHAPES),
                "host_prep": list(HOST_PREP_SHAPES), "refine": ["batch32"], "resize": list(RESIZE_SHAPES),
-               "raw": list(RAW_SHAPES), "tiff": list(TIFF_SHAPES), "smooth": list(SMOOTH_SHAPES)}
+               "raw": list(RAW_SHAPES), "tiff": list(TIFF_SHAPES), "smooth": list(SMOOTH_SHAPES),
+               "fax": list(FAX_SHAPES)}
 
 
 def time_call(torch, call, graph: bool = True) -> dict:
@@ -457,6 +470,36 @@ def child_smooth(tree: str, names) -> None:
               flush=True)
 
 
+def child_fax(tree: str, names) -> None:
+    """Time one tree's K11 at the named shapes; one JSON line per shape."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+
+    from ssd_object_detection_tpu_torch.data import codec
+    from ssd_object_detection_tpu_torch.ops import cuda_image
+
+    for name in names:
+        if FAX_SHAPES[name] is None:
+            one = torch.zeros(1, dtype=torch.uint8, device="cuda")
+            print(json.dumps({"shape": name, **time_call(torch, lambda: one.add_(1))}), flush=True)
+            continue
+        fixture, copies = FAX_SHAPES[name]
+        with open(os.path.join(os.path.dirname(HOST_PREP_JPEG), fixture), "rb") as f:
+            tiff = codec.parse_tiff(f.read())
+        batch, single = codec.raw_batch([], [tiff] * copies, []), codec.raw_batch([], [tiff], [])
+        buf, want = cuda_image.upload(batch, torch.device("cuda")), cuda_image.upload(single, torch.device("cpu"))
+        cuda_image.ccitt_decode(want, single)
+        cuda_image.ccitt_decode(buf, batch)
+        region = buf[batch.fax_out:batch.fax_out + batch.fax_bytes].cpu().reshape(copies, -1)
+        if not all(torch.equal(r, want[single.fax_out:single.fax_out + single.fax_bytes]) for r in region):
+            raise SystemExit(f"{tree} {name}: K11 and its plain version differ")
+
+        def call():  # into the decoded output again (it writes the same bytes): the same work
+            return cuda_image.ccitt_decode(buf, batch)
+
+        print(json.dumps({"shape": name, **time_call(torch, call)}), flush=True)
+
+
 def card_line() -> str:
     """nvidia-smi's name and power limit of the card; "none" without nvidia-smi (a
     host_prep run on a machine without a card)."""
@@ -471,7 +514,7 @@ def card_line() -> str:
 
 CHILDREN = {"conv": child_conv, "matcher": child_matcher, "host_prep": child_host_prep, "refine": child_refine,
             "resize": child_resize, "raw": child_raw, "tiff": lambda tree, names: child_raw(tree, names, "tiff"),
-            "smooth": child_smooth}
+            "smooth": child_smooth, "fax": child_fax}
 
 
 def main() -> None:

@@ -33,7 +33,9 @@
 // (TIFFYCbCrtoRGB's integer lookups in TIFFYCbCrToRGBInit's tables and its clamp, the
 // samples in data units of hs x vs Y, then Cb and Cr) or CIELab (TIFFCIELab16ToXYZ, then
 // TIFFXYZToRGB through TIFFCIELabToRGBInit's tables for libtiff's sRGB display, in
-// float32 in the C's order; -fmad=false keeps each product a product). Every format then
+// float32 in the C's order; -fmad=false keeps each product a product) or SGILog (K12's
+// LogL and LogLuv words, SGILog24's raw pixels, by tif_luv.c's 8-bit conversions in
+// double, exp from the host's tables). Every format then
 // takes the orientation (csrc/orientation.cuh), each tile's columns mirrored where libtiff
 // mirrors them.
 //
@@ -67,7 +69,9 @@ constexpr int kChunkInts = 12;  // data/codec.py TIFF_CHUNK_INTS
 constexpr int kLabRange = 1500, kLabHeader = 24;  // data/codec.py LAB_RANGE, LAB_HEADER
 // data/codec.py RAW_*, TIFF_*_FORMAT
 enum { kPal1, kPal4, kPal8, kBgr555, kBgr565, kBgr, kBgrx, kRgb, kGray, kRgb16, kGray16, kText, kFloat, kRgbe,
-       kBgr16, kTiffLut, kTiffRgb, kTiffCmyk, kTiffYcbcr, kTiffLab };
+       kBgr16, kTiffLut, kTiffRgb, kTiffCmyk, kTiffYcbcr, kTiffLab, kTiffLogL, kTiffLogLuv, kTiffLogLuv24 };
+// data/codec.py sgilog_tables: LogL16toY's doubles, LogL10toY's, then uv_row's pairs
+constexpr int kY16 = 32768, kY10 = 1024, kUvRows = 163, kUvDivs = 16289;
 // data/codec.py R_*: one image's fields
 enum { kOut, kHeight, kWidth, kFmt, kOffset, kStride, kChannels, kMaxval, kBigEndian, kTop, kLeft, kWinH, kWinW,
        kOrientation, kColour, kAlpha, kPlanar, kMirror, kPalette, kScale, kAcross, kChunkW, kPerPlane, kTable, kHs, kVs,
@@ -162,6 +166,56 @@ __device__ __noinline__ uint32_t lab_rgb(const float* t, float lum, float a, flo
     rgb |= min(r, static_cast<unsigned int>(h[6])) << (8 * g);
   }
   return rgb;
+}
+
+// SGILog as libtiff's 8-bit output (tif_luv.c, ops/plain_image.py::logl_gray,
+// logluv_rgb): doubles in the C's order (-fmad=false), X, Y and Z rounded to float, exp
+// from the host's tables, sqrt exact
+__device__ __forceinline__ int gamma_byte(double v) {
+  return v <= 0.0 ? 0 : v >= 1.0 ? 255 : static_cast<int>(__dmul_rn(256.0, __dsqrt_rn(v)));
+}
+
+__device__ __forceinline__ double logl_y(const double* y16, int p16) {
+  const double y = y16[p16 & 0x7fff];
+  return p16 & 0x8000 ? -y : y;
+}
+
+__device__ uint32_t xyz_rgb24(double lum, double u, double v) {  // LogLuv*toXYZ from L, u', v', then XYZtoRGB24
+  if (lum <= 0.0) return 0;
+  const double s = __ddiv_rn(1.0, __dadd_rn(__dsub_rn(__dmul_rn(6.0, u), __dmul_rn(16.0, v)), 12.0));
+  const double x = __dmul_rn(__dmul_rn(9.0, u), s), y = __dmul_rn(__dmul_rn(4.0, v), s);
+  const double X = __double2float_rn(__dmul_rn(__ddiv_rn(x, y), lum));
+  const double Y = __double2float_rn(lum);
+  const double Z = __double2float_rn(__dmul_rn(__ddiv_rn(__dsub_rn(__dsub_rn(1.0, x), y), y), lum));
+  const double r = __dadd_rn(__dadd_rn(__dmul_rn(2.690, X), __dmul_rn(-1.276, Y)), __dmul_rn(-0.414, Z));
+  const double g = __dadd_rn(__dadd_rn(__dmul_rn(-1.022, X), __dmul_rn(1.978, Y)), __dmul_rn(0.044, Z));
+  const double b = __dadd_rn(__dadd_rn(__dmul_rn(0.061, X), __dmul_rn(-0.224, Y)), __dmul_rn(1.163, Z));
+  return pack(gamma_byte(r), gamma_byte(g), gamma_byte(b));
+}
+
+__device__ __noinline__ uint32_t logluv_rgb(const int* t, uint32_t p, bool packed24) {
+  const double* y16 = reinterpret_cast<const double*>(t);
+  if (!packed24) {
+    const double inv = 1.0 / 410.0;  // 1. / UVSCALE
+    return xyz_rgb24(logl_y(y16, static_cast<int>(p >> 16)), __dmul_rn(inv, static_cast<double>((p >> 8) & 0xff) + 0.5),
+                     __dmul_rn(inv, static_cast<double>(p & 0xff) + 0.5));
+  }
+  const double lum = reinterpret_cast<const double*>(t + 2 * kY16)[(p >> 14) & 0x3ff];
+  const int ce = static_cast<int>(p & 0x3fff);
+  double u = 0.210526316, v = 0.473684211;  // U_NEU, V_NEU: uv_decode fails
+  if (ce < kUvDivs) {  // uv_decode: the last row whose squares before it are at most ce
+    const int* uv = t + 2 * (kY16 + kY10);
+    int lower = 0, upper = kUvRows;
+    while (upper - lower > 1) {
+      const int mid = (lower + upper) >> 1;
+      if (uv[2 * mid + 1] <= ce) lower = mid; else upper = mid;
+    }
+    const double sq = static_cast<double>(0.0035f);  // UV_SQSIZ
+    u = __dadd_rn(static_cast<double>(__int_as_float(uv[2 * lower])),
+                  __dmul_rn(static_cast<double>(ce - uv[2 * lower + 1]) + 0.5, sq));
+    v = __dadd_rn(static_cast<double>(0.016940f), __dmul_rn(static_cast<double>(lower) + 0.5, sq));
+  }
+  return xyz_rgb24(lum, u, v);
 }
 
 __device__ uint8_t saturate(float v) {
@@ -291,6 +345,23 @@ __device__ __forceinline__ uint32_t pixel(const Source& s, const int* im, const 
       const int hs = im[kHs], vs = im[kVs];  // a data unit: hs x vs Y samples, then Cb and Cr
       const uint8_t* u = first.p + (first.col / hs) * (hs * vs + 2);
       return inside ? ycbcr_rgb(t, u[(first.r % vs) * hs + first.col % hs], u[hs * vs], u[hs * vs + 1]) : outside;
+    }
+    case kTiffLogL:
+    case kTiffLogLuv:
+    case kTiffLogLuv24: {  // a pixel's word in its chunk row (K12's little-endian words, LogLuv24's raw bytes)
+      const int* t = s.desc + im[kTable];
+      const int word = fmt == kTiffLogL ? 2 : fmt == kTiffLogLuv ? 4 : 3;
+      uint32_t p = 0;
+      for (int i = 0; i < word; ++i) {
+        const uint32_t b = static_cast<uint32_t>(held_byte(first, first.col * word + i));
+        p |= fmt == kTiffLogLuv24 ? b << (8 * (2 - i)) : b << (8 * i);
+      }
+      if (!inside) return outside;
+      if (fmt == kTiffLogL) {
+        const int g = gamma_byte(logl_y(reinterpret_cast<const double*>(t), static_cast<int>(p)));
+        return pack(g, g, g);
+      }
+      return logluv_rgb(t, p, fmt == kTiffLogLuv24);
     }
     default: {  // kTiffLab: putcontig8bitCIELab8 (values scaled to 16 bits) or putcontig8bitCIELab16
       const float* t = reinterpret_cast<const float*>(s.desc + im[kTable]);

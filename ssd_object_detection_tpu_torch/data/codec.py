@@ -26,10 +26,10 @@ progressive refinement scans (K6), block smoothing (K7), dequantisation and the 
 IDCT (K2), libjpeg-turbo's upsampling, YCbCr->RGB, CMYK/YCCK->RGB as cv2 converts them
 and the Exif orientation (K3), PNG unfiltering with the expansion to 8-bit RGB (K5), GIF
 LZW decoding to palette indices (K9; TIFF LZW chunks, new- and old-style, to bytes),
-TIFF CCITT and ThunderScan chunks to their samples (K11), the TIFF predictor and byte
-swap (K10), and the other formats' pixels (and K9's indices) to RGB (K8). On CPU tensors
-the same calls run the plain versions (ops/plain_image.py).
-the same calls run the plain versions (ops/plain_image.py).
+TIFF CCITT and ThunderScan chunks to their samples (K11), TIFF SGILog chunks' run-length
+planes to their words (K12), the TIFF predictor and byte swap (K10), and the other
+formats' pixels (and K9's indices) to RGB (K8). On CPU tensors the same calls run the
+plain versions (ops/plain_image.py).
 
 Corrupt JPEG data decodes as libjpeg-turbo 3.1.2 decodes it: where a segment's data ends
 at a marker before its MCUs do, the MCU being decoded finishes on zero bits and the rest
@@ -42,10 +42,12 @@ Supported: baseline, extended-sequential and progressive Huffman JPEGs, 8-bit, 1
 at integral ratios, any restart interval, one or several scans, smoothed or not; PNGs of
 every colour type and bit depth, interlaced or not; GIF87a and GIF89a (the first frame on
 its logical screen, LZW minimum code sizes 2-11, interlaced or not, transparency);
-TIFF and BigTIFF as cv2 5.0 reads them through libtiff 4.7 (parse_tiff: strips, tiles,
-separate planes, uncompressed, PackBits, Deflate, LZW (old-style codes too), CCITT
-(modified Huffman, RLEW, Group 3 1-D and 2-D, Group 4) on 1-bit samples, ThunderScan on
-4-bit ones and JPEG (each chunk an image of the batch's JPEG launches), the predictor,
+TIFF and BigTIFF as cv2 5.0 reads them through libtiff 4.7 (parse_tiff: strips, tiles
+(uncompressed ones as cv2 reads them: _tiled_none_reads), separate planes, uncompressed,
+PackBits, Deflate, LZW (old-style codes too), CCITT (modified Huffman, RLEW, Group 3 1-D
+and 2-D, Group 4) on 1-bit samples, ThunderScan on 4-bit ones, SGILog and SGILog24 on
+LogL and LogLuv (K12, then K8 by libtiff's 8-bit conversions) and JPEG (each chunk an
+image of the batch's JPEG launches), the predictor,
 1- to 16-bit gray, palette, RGB(A), CMYK, YCbCr
 (every subsampling libtiff puts) and CIELab samples, the orientation; a compression code
 no codec claims as zero samples); BMPs (core and info headers,
@@ -54,10 +56,9 @@ with any maxval, PAM (P7: gray and RGB of 8 or 16 bits,
 and MAXVAL 1 bits, as cv2 5.0 reads them), Sun rasters of 1, 8, 24 and 32 bits (the
 old and the standard type), 3-channel PFMs of either byte order, Radiance HDRs (`-Y H +X
 W`, RLE or flat scanlines). Refused with `UnsupportedImage` (cv2 reads them):
-SGILog TIFFs (LogLuv), YCbCr TIFFs of
+YCbCr TIFFs of
 4 x 4 data units that are no whole number of scanlines (cv2 reads memory libtiff never
-wrote), uncompressed tiled TIFFs of 4 samples (and any read from a file, which cv2.imread
-reads: check_file_read), 12-bit JPEG-in-TIFFs, WebP, JPEG 2000, AVIF (by any
+wrote), 12-bit JPEG-in-TIFFs, WebP, JPEG 2000, AVIF (by any
 brand of its `ftyp` box), lossless, hierarchical
 and arithmetic-coded JPEGs, 12-bit ones, a 1-channel PFM (cv2 returns it with one
 channel, which the JAX package's decode paths do not take) and a PAM with alpha past
@@ -73,6 +74,8 @@ setup refuses its samples, a JPEG-in-TIFF chunk libtiff cannot start, and the li
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 import struct
 import zlib
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -1817,10 +1820,12 @@ _TIFF_COMPRESSIONS = (TIFF_NONE, TIFF_LZW, TIFF_DEFLATE, TIFF_ADOBE_DEFLATE, TIF
 _TIFF_NONE_CODECS = {6: "old-style JPEG", 32766: "NeXT", 32909: "PixarLog", 34661: "JBIG", 34887: "LERC",
                      34925: "LZMA", 50000: "ZSTD", 50001: "WebP"}
 # codecs cv2 decodes on some samples (None elsewhere): the CCITT codecs on 1-bit samples and
-# ThunderScan on 4-bit ones (K11), SGILog on LogL / LogLuv (this decoder lacks it)
+# ThunderScan on 4-bit ones (K11), SGILog on LogL and LogLuv (K12 for its run-length
+# planes; SGILog24's raw pixels on the host)
 TIFF_CCITT = {2: "CCITT modified Huffman", 3: "CCITT Group 3", 4: "CCITT Group 4", 32771: "CCITT RLEW"}
 TIFF_THUNDERSCAN = 32809
-_TIFF_LACKED = {**TIFF_CCITT, TIFF_THUNDERSCAN: "ThunderScan", 34676: "SGILog", 34677: "SGILog24"}
+TIFF_SGILOG, TIFF_SGILOG24 = 34676, 34677
+_TIFF_SOME = {**TIFF_CCITT, TIFF_THUNDERSCAN: "ThunderScan", TIFF_SGILOG: "SGILog", TIFF_SGILOG24: "SGILog24"}
 _TIFF_UNCLAIMED = {0: "compression 0", 9: "JBIG T.85", 10: "JBIG T.43", 32895: "IT8CTPAD", 32896: "IT8LW",
                    32897: "IT8MP", 32898: "IT8BL", 32908: "PixarFilm", 34712: "JPEG 2000", 50002: "JPEG XL"}
 TIFF_LOGL, TIFF_LOGLUV = 32844, 32845
@@ -1828,25 +1833,22 @@ TIFF_LOGL, TIFF_LOGLUV = 32844, 32845
 
 def tiff_compression_outcome(compression: int, bits: int, photometric: int) -> Tuple[str, str]:
     """What cv2 5.0 makes of a TIFF's compression code, for samples it otherwise reads:
-    ("decode", name) for this decoder's codecs (the CCITT codecs on 1-bit samples and
-    ThunderScan on 4-bit ones among them), ("none", name) where cv2 returns None, ("lacks",
-    name) where cv2's libtiff decodes what this decoder cannot (SGILog on LogL / LogLuv),
-    ("zero", name) for a code no codec claims (every chunk reads as zero samples). A LogL
-    or LogLuv image is "none" but for SGILog."""
-    if photometric in (TIFF_LOGL, TIFF_LOGLUV) and compression not in (34676, 34677):
+    ("decode", name) for this decoder's codecs (the CCITT codecs on 1-bit samples,
+    ThunderScan on 4-bit ones and SGILog on LogL and LogLuv among them), ("none", name)
+    where cv2 returns None, ("zero", name) for a code no codec claims (every chunk reads as
+    zero samples). A LogL or LogLuv image is "none" but for SGILog."""
+    if photometric in (TIFF_LOGL, TIFF_LOGLUV) and compression not in (TIFF_SGILOG, TIFF_SGILOG24):
         return "none", "LogL or LogLuv without SGILog"  # libtiff reads them through SGILog only
     if compression in _TIFF_COMPRESSIONS:
         return "decode", {TIFF_NONE: "no compression", TIFF_LZW: "LZW", TIFF_DEFLATE: "Deflate",
                           TIFF_ADOBE_DEFLATE: "Deflate", TIFF_PACKBITS: "PackBits", TIFF_JPEG: "JPEG"}[compression]
     if compression in _TIFF_NONE_CODECS:
         return "none", _TIFF_NONE_CODECS[compression]
-    if compression in _TIFF_LACKED:
-        name = _TIFF_LACKED[compression]
+    if compression in _TIFF_SOME:
+        name = _TIFF_SOME[compression]
         takes = (bits == 1 if compression in TIFF_CCITT else bits == 4 if compression == TIFF_THUNDERSCAN else
-                 photometric == TIFF_LOGLUV or (photometric == TIFF_LOGL and compression == 34676))
-        if not takes:
-            return "none", name
-        return ("lacks" if compression in (34676, 34677) else "decode"), name
+                 photometric == TIFF_LOGLUV or (photometric == TIFF_LOGL and compression == TIFF_SGILOG))
+        return ("decode" if takes else "none"), name
     return "zero", _TIFF_UNCLAIMED.get(compression, f"compression {compression}")
 # K8's view of a TIFF's samples (codec.RawImage.fmt): through a 256-entry table (gray
 # contig, palette: libtiff's BWmap and PALmap), as RGB (RGB, and gray planes, which
@@ -1854,6 +1856,11 @@ def tiff_compression_outcome(compression: int, bits: int, photometric: int) -> T
 # TIFFYCbCrToRGBInit, contiguous samples in their subsampled data units) or as CIELab
 # (TIFFCIELabToXYZ, then TIFFXYZToRGB through the tables of TIFFCIELabToRGBInit)
 TIFF_LUT_FORMAT, TIFF_RGB_FORMAT, TIFF_CMYK_FORMAT, TIFF_YCBCR_FORMAT, TIFF_LAB_FORMAT = 15, 16, 17, 18, 19
+# SGILog as libtiff's RGBA interface reads it (SGILOGDATAFMT_8BIT: tif_luv.c's L16toGry,
+# Luv32toRGB, Luv24toRGB): K8 turns each pixel's word into bytes, LogL's 16 bits and
+# LogLuv's 32 as K12 decoded them (little-endian), SGILog24's 3 raw bytes as stored
+TIFF_LOGL_FORMAT, TIFF_LOGLUV_FORMAT, TIFF_LOGLUV24_FORMAT = 20, 21, 22
+SGILOG_WORD = {TIFF_LOGL_FORMAT: 2, TIFF_LOGLUV_FORMAT: 4, TIFF_LOGLUV24_FORMAT: 3}
 # One chunk (a strip or a tile of one plane) as K10 and K8 read it: [byte of its decoded
 # rows in the batch's byte buffer (or, for a JPEG chunk, of its frame in the JPEG kernels'
 # output), 1 for a JPEG chunk, bytes from one row of pixels to the next as libtiff's put
@@ -1875,14 +1882,28 @@ LZW_GIF, LZW_TIFF, LZW_TIFF_OLD = 0, 1, 2
 # 0), Fax4Decode (4); tif_thunder.c's ThunderDecodeRow (32809)
 FAX_RLE, FAX_RLEW, FAX_G3_1D, FAX_G3_2D, FAX_G4, FAX_THUNDER = range(6)
 # One K11 stream, a CCITT or ThunderScan chunk (csrc/ccitt_decode.cu enum Stream): [byte of
-# its coded data in the call's buffer, coded bytes, flavour, rows, pixels a row, bytes a
-# row, byte of its decoded rows in the buffer, 1 where its first byte lies at an odd
-# address in the file (RLEW's word alignment reads it), its image's first int in the run
-# scratch, 1 where the next stream is the same image's next chunk (libtiff's CCITT decoder
-# keeps its run arrays and FAXMODE_NOEOL from one chunk to the next: one thread of a CTA
-# walks an image's chunks in turn)]
-FAX_INTS = 10
-F_SRC, F_BYTES, F_MODE, F_ROWS, F_WIDTH, F_ROW_BYTES, F_OUT, F_ODD, F_RUNS, F_NEXT = range(FAX_INTS)
+# its coded data in the call's buffer (16-byte aligned: the kernel stages it with
+# cp.async), coded bytes, flavour, rows, pixels a row, bytes a row, byte of its decoded
+# rows in the buffer, 1 where its first byte lies at an odd address in the file (RLEW's
+# word alignment reads it), its first int in the run scratch (fax_area ints: where it
+# saves its run arrays), the stream of its image's first chunk, its image's chunks
+# (libtiff's CCITT decoder keeps its run arrays and FAXMODE_NOEOL from one chunk to the
+# next: the kernel decodes each chunk from a guess of them and repairs from the first
+# chunk whose guess failed, ops/fax_schedule_model.py)]
+FAX_INTS = 11
+F_SRC, F_BYTES, F_MODE, F_ROWS, F_WIDTH, F_ROW_BYTES, F_OUT, F_ODD, F_RUNS, F_FIRST, F_CHUNKS = range(FAX_INTS)
+# One chunk's record, which K11 writes (csrc/ccitt_decode.cu enum Record): flags (FAX_FOREIGN:
+# its guess read a run-array entry it had not written; FAX_NOEOL: it leaves FAXMODE_NOEOL
+# on), the high-water marks of its two run arrays, and on an image's first chunk the
+# count of its chunks done and the chunk (1-based, 0 none) its repair started from
+FAX_RECORD_INTS = 5
+FR_FLAGS, FR_HIGH0, FR_HIGH1, FR_DONE, FR_REPAIR_FROM = range(FAX_RECORD_INTS)
+FAX_FOREIGN, FAX_NOEOL = 1, 2
+# One K12 stream, an SGILog chunk (csrc/sgilog_decode.cu enum Stream): [byte of its coded
+# data in the call's buffer, coded bytes, bytes a decoded word (2: LogL's 16 bits, 4:
+# LogLuv's 32), rows, pixels a row, byte of its decoded words in the buffer]
+SGI_INTS = 6
+G_SRC, G_BYTES, G_WORD, G_ROWS, G_WIDTH, G_OUT = range(SGI_INTS)
 TIFF_LZW_CLEAR, TIFF_LZW_EOI = 256, 257
 
 
@@ -1907,6 +1928,7 @@ class TiffChunk:
     missing: bool = False  # a later plane's chunk libtiff reads without checking: zero samples
     lzw: int = LZW_TIFF  # an LZW chunk's K9 flavour (LZW_TIFF_OLD: the file's first chunk is old-style)
     fax: int = -1  # a CCITT or ThunderScan chunk's K11 flavour (FAX_*), -1 none
+    sgi: int = 0  # an SGILog chunk's word bytes where K12 decodes it (2: LogL, 4: LogLuv), 0 none
     odd: int = 0  # 1 where its first byte lies at an odd offset in the file
 
     @property
@@ -2056,6 +2078,67 @@ def lab_tables(white: Sequence[np.float32]) -> np.ndarray:
     return np.asarray(head + [v for t in tables for v in t], np.float32)
 
 
+# tif_luv.c's SGILog decoding (libtiff 4.7): UVSCALE, and uvcode.h's (u', v') grid for
+# LogLuv24's 14-bit colour index, uv_row: each row's first u' (a float), its squares, the
+# squares before it
+SGILOG_UVSCALE = 410.0
+SGILOG_U_NEU, SGILOG_V_NEU = 0.210526316, 0.473684211
+SGILOG_UV_SQSIZ, SGILOG_UV_VSTART, SGILOG_UV_NDIVS = np.float32(0.0035), np.float32(0.016940), 16289
+_SGILOG_UV_ROW = (
+    (0.247663, 4, 0), (0.243779, 6, 4), (0.241684, 7, 10), (0.237874, 9, 17), (0.235906, 10, 26),
+    (0.232153, 12, 36), (0.228352, 14, 48), (0.226259, 15, 62), (0.222371, 17, 77), (0.22041, 18, 94),
+    (0.21471, 21, 112), (0.212714, 22, 133), (0.210721, 23, 155), (0.204976, 26, 178), (0.202986, 27, 204),
+    (0.199245, 29, 231), (0.195525, 31, 260), (0.19356, 32, 291), (0.189878, 34, 323), (0.186216, 36, 357),
+    (0.186216, 36, 393), (0.182592, 38, 429), (0.179003, 40, 467), (0.175466, 42, 507), (0.172001, 44, 549),
+    (0.172001, 44, 593), (0.168612, 46, 637), (0.168612, 46, 683), (0.163575, 49, 729), (0.158642, 52, 778),
+    (0.158642, 52, 830), (0.158642, 52, 882), (0.153815, 55, 934), (0.153815, 55, 989), (0.149097, 58, 1044),
+    (0.149097, 58, 1102), (0.142746, 62, 1160), (0.142746, 62, 1222), (0.142746, 62, 1284), (0.13827, 65, 1346),
+    (0.13827, 65, 1411), (0.13827, 65, 1476), (0.132166, 69, 1541), (0.132166, 69, 1610), (0.126204, 73, 1679),
+    (0.126204, 73, 1752), (0.126204, 73, 1825), (0.120381, 77, 1898), (0.120381, 77, 1975), (0.120381, 77, 2052),
+    (0.120381, 77, 2129), (0.112962, 82, 2206), (0.112962, 82, 2288), (0.112962, 82, 2370), (0.10745, 86, 2452),
+    (0.10745, 86, 2538), (0.10745, 86, 2624), (0.10745, 86, 2710), (0.100343, 91, 2796), (0.100343, 91, 2887),
+    (0.100343, 91, 2978), (0.095126, 95, 3069), (0.095126, 95, 3164), (0.095126, 95, 3259), (0.095126, 95, 3354),
+    (0.088276, 100, 3449), (0.088276, 100, 3549), (0.088276, 100, 3649), (0.088276, 100, 3749),
+    (0.081523, 105, 3849), (0.081523, 105, 3954), (0.081523, 105, 4059), (0.081523, 105, 4164),
+    (0.074861, 110, 4269), (0.074861, 110, 4379), (0.074861, 110, 4489), (0.074861, 110, 4599),
+    (0.06829, 115, 4709), (0.06829, 115, 4824), (0.06829, 115, 4939), (0.06829, 115, 5054), (0.063573, 119, 5169),
+    (0.063573, 119, 5288), (0.063573, 119, 5407), (0.063573, 119, 5526), (0.057219, 124, 5645),
+    (0.057219, 124, 5769), (0.057219, 124, 5893), (0.057219, 124, 6017), (0.050985, 129, 6141),
+    (0.050985, 129, 6270), (0.050985, 129, 6399), (0.050985, 129, 6528), (0.050985, 129, 6657),
+    (0.044859, 134, 6786), (0.044859, 134, 6920), (0.044859, 134, 7054), (0.044859, 134, 7188),
+    (0.040571, 138, 7322), (0.040571, 138, 7460), (0.040571, 138, 7598), (0.040571, 138, 7736),
+    (0.036339, 142, 7874), (0.036339, 142, 8016), (0.036339, 142, 8158), (0.036339, 142, 8300),
+    (0.032139, 146, 8442), (0.032139, 146, 8588), (0.032139, 146, 8734), (0.032139, 146, 8880),
+    (0.027947, 150, 9026), (0.027947, 150, 9176), (0.027947, 150, 9326), (0.023739, 154, 9476),
+    (0.023739, 154, 9630), (0.023739, 154, 9784), (0.023739, 154, 9938), (0.019504, 158, 10092),
+    (0.019504, 158, 10250), (0.019504, 158, 10408), (0.016976, 161, 10566), (0.016976, 161, 10727),
+    (0.016976, 161, 10888), (0.016976, 161, 11049), (0.012639, 165, 11210), (0.012639, 165, 11375),
+    (0.012639, 165, 11540), (0.009991, 168, 11705), (0.009991, 168, 11873), (0.009991, 168, 12041),
+    (0.009016, 170, 12209), (0.009016, 170, 12379), (0.009016, 170, 12549), (0.006217, 173, 12719),
+    (0.006217, 173, 12892), (0.005097, 175, 13065), (0.005097, 175, 13240), (0.005097, 175, 13415),
+    (0.003909, 177, 13590), (0.003909, 177, 13767), (0.00234, 177, 13944), (0.002389, 170, 14121),
+    (0.001068, 164, 14291), (0.001653, 157, 14455), (0.000717, 150, 14612), (0.001614, 143, 14762),
+    (0.00027, 136, 14905), (0.000484, 129, 15041), (0.001103, 123, 15170), (0.001242, 115, 15293),
+    (0.001188, 109, 15408), (0.001011, 103, 15517), (0.000709, 97, 15620), (0.000301, 89, 15717),
+    (0.002416, 82, 15806), (0.003251, 76, 15888), (0.003246, 69, 15964), (0.004141, 62, 16033),
+    (0.005963, 55, 16095), (0.008839, 47, 16150), (0.01049, 40, 16197), (0.016994, 31, 16237),
+    (0.023659, 21, 16268),)
+SGILOG_TABLE_INTS = 2 * (32768 + 1024) + 2 * len(_SGILOG_UV_ROW)
+
+
+@functools.lru_cache(maxsize=None)
+def sgilog_tables() -> np.ndarray:
+    """K8's SGILog tables as int32 (doubles as two ints each): tif_luv.c's LogL16toY of
+    each 15-bit magnitude (32,768 doubles) and LogL10toY of each 10-bit L (1,024 doubles),
+    computed with the C library's exp (math.exp, not numpy's, which may differ in the last
+    place), then uv_row's first u' (float32 bits) and squares before it, a pair a row."""
+    ln2 = math.log(2.0)  # M_LN2
+    y16 = np.array([0.0] + [math.exp(ln2 / 256. * (le + .5) - ln2 * 64.) for le in range(1, 32768)])
+    y10 = np.array([0.0] + [math.exp(ln2 / 64. * (p + .5) - ln2 * 12.) for p in range(1, 1024)])
+    uv = np.array([(np.float32(u).view(np.int32), cum) for u, _, cum in _SGILOG_UV_ROW], np.int32)
+    return np.concatenate([y16.view(np.int32), y10.view(np.int32), uv.reshape(-1)])
+
+
 _BIT_REVERSED = bytes(int(f"{i:08b}"[::-1], 2) for i in range(256))  # FillOrder 2: each byte's bits reversed
 
 
@@ -2145,10 +2228,6 @@ def _tiff_layout(tags: dict, get, one, data: bytes, height: int, width: int, spp
         if tw * samples * bits % 8:
             raise UnsupportedImage(f"TIFF tiles {tw} pixels wide at {samples * bits} bits a pixel "
                                    f"(not a whole number of bytes; {_READ})")
-        if compression == TIFF_NONE:  # cv2 returns None but for 4 samples a pixel (probed; those not pinned)
-            if spp != 4:
-                raise ValueError(f"uncompressed tiled TIFF of {spp} samples a pixel (cv2 returns None)")
-            raise UnsupportedImage(f"uncompressed tiled TIFF of 4 samples a pixel ({_READ})")
         boxes = [(y, x, th, tw) for y in range(0, height, th) for x in range(0, width, tw)]
         off_tag, count_tag = 324, 325
         chunk_hw = (th, tw)
@@ -2181,10 +2260,16 @@ def _tiff_layout(tags: dict, get, one, data: bytes, height: int, width: int, spp
         if (c == 0 and o != 0) or count_tag not in tags or (compression == TIFF_NONE and (
                 (o <= len(data) and c > len(data) - o) or c < need)):
             counts[0] = need if compression == TIFF_NONE else max(0, len(data) - o)
-    elif (one(284, 1) == 1 and not tiled and total > 2 and compression == TIFF_NONE and counts[0] != counts[1]
-          and counts[0] and counts[1]):  # and, uncompressed, strips whose first two counts differ
-        counts = [scanline * (height // total)] * total
+    tile_size = -(-chunk_hw[0] // sub[1]) * _ycbcr_units(chunk_hw[1], sub)[0] if units else \
+        chunk_hw[0] * -(-chunk_hw[1] * samples * bits // 8)  # TIFFTileSize
+    if (total == 1 and not tiled) or one(284, 1) != 1 or total <= 2 or compression != TIFF_NONE:
+        pass
+    elif counts[0] != counts[1] and counts[0] and counts[1]:  # uncompressed, contiguous, the first two counts differ:
+        # libtiff estimates every count (EstimateStripByteCounts), a tile's its size
+        counts = [tile_size if tiled else scanline * (height // total)] * total
     reverse = one(266, 1) == 2 and compression != TIFF_JPEG  # libtiff's JPEG codec sets TIFF_NOBITREV
+    if tiled and compression == TIFF_NONE:
+        _tiled_none_reads(offsets, counts, per_plane, read_planes, tile_size, from_file and not reverse, len(data))
     chunks = []
     for plane in read_planes:
         for i, (y0, x0, rows, cols) in enumerate(boxes):
@@ -2220,6 +2305,33 @@ def _tiff_layout(tags: dict, get, one, data: bytes, height: int, width: int, spp
                                     byte0, plane, placed_rows, min(row_bytes, stride - byte0), pitch,
                                     odd=o & 1 if from_file else 0))
     return chunks, chunk_hw
+
+
+def _tiled_none_reads(offsets: List[int], counts: List[int], per_plane: int, planes: List[int], tile_size: int,
+                      mapped: bool, n: int) -> None:
+    """ValueError where cv2 returns None for an uncompressed tiled TIFF. cv2 reads each tile
+    through TIFFReadRGBATile, whose first read of a tile (of its first plane) goes through
+    libtiff 4.7's _TIFFReadEncodedTileAndAllocBuffer, which fails an uncompressed tile
+    unless libtiff's raw buffer is exactly TIFFTileSize bytes. A file that cv2.imread maps
+    (FillOrder 1) points the buffer at the tile's own bytes: its byte count must be the
+    tile size. Bytes (cv2.imdecode), or a file whose bits are reversed, are read into
+    libtiff's own buffer, which grows to the next multiple of 1,024 bytes of the largest
+    byte count read so far (a later plane's too): that must be the tile size. A tile that
+    passes with fewer bytes than its size reads as zero (its decode fails after the buffer
+    was zeroed, and cv2 goes on: TiffChunk.ok). Pinned by probes of cv2 5.0.0 and by the
+    fixtures tiff_tiles_*."""
+    size = 0
+    for i in range(per_plane):
+        for j, plane in enumerate(planes):
+            k = plane * per_plane + i
+            count = counts[k]
+            if count == 0:  # TIFFFillTile fails before it reads (the first plane's raises below)
+                continue
+            if not mapped and count > size:
+                size = -(-count // 1024) * 1024
+            if j == 0 and offsets[k] + count <= n and (count if mapped else size) != tile_size:
+                raise ValueError(f"uncompressed tiled TIFF whose tile {i} libtiff reads into a buffer of "
+                                 f"{count if mapped else size} bytes for its {tile_size} (cv2 returns None)")
 
 
 def _lzw_clear(raw: bytes, old: bool) -> bool:
@@ -2303,12 +2415,14 @@ def parse_tiff(data: bytes, from_file: bool = False) -> TiffImage:
     or 16-bit CIELab (WhitePoint or D50); the horizontal predictor; the Orientation tag as
     cv2 applies it; the CCITT codecs (modified Huffman, RLEW, Group 3 1-D and 2-D, Group
     4) on 1-bit samples and ThunderScan on 4-bit ones (K11), and old-style LZW codes (K9's
-    third flavour). ValueError where cv2 returns None (tiff_compression_outcome's "none"
-    codecs among them, ICCLab, ITULab, YCbCr or CIELab samples no put routine takes);
-    UnsupportedImage for what cv2 reads and this decoder does not (its "lacks" codecs,
-    YCbCr of 4 x 4 units no whole number of scanlines, uncompressed tiles of 4 samples,
-    12-bit JPEG-in-TIFF). `from_file`: as cv2.imread reads the bytes of a file (they
-    differ from cv2.imdecode's only in RLEW's word alignment, see _tiff_layout)."""
+    third flavour), SGILog and SGILog24 on LogL and LogLuv (_sgilog_tiff). ValueError
+    where cv2 returns None (tiff_compression_outcome's "none" codecs among them, ICCLab,
+    ITULab, YCbCr or CIELab samples no put routine takes, uncompressed tiles whose bytes
+    libtiff refuses: _tiled_none_reads); UnsupportedImage for what cv2 reads and this
+    decoder does not (YCbCr of 4 x 4 units no whole number of scanlines, 12-bit
+    JPEG-in-TIFF). `from_file`: as cv2.imread reads the bytes of a file (they differ from
+    cv2.imdecode's in RLEW's word alignment and in which uncompressed tiles read, see
+    _tiff_layout)."""
     order, big, tags = _tiff_directory(data)
 
     def get(tag, default=None):
@@ -2336,6 +2450,8 @@ def parse_tiff(data: bytes, from_file: bool = False) -> TiffImage:
         raise ValueError(f"TIFF of sample format {formats[0]} (cv2 reads unsigned and signed integers: it "
                          f"returns None for floating-point samples)")
     compression = one(259, TIFF_NONE)
+    if photometric in (TIFF_LOGL, TIFF_LOGLUV):
+        return _sgilog_tiff(tags, get, one, data, height, width, spp, bits, compression, photometric, from_file)
     jpeg = compression == TIFF_JPEG
     if jpeg and bits == 12:
         raise UnsupportedImage(f"12-bit JPEG-in-TIFF ({_READ})")
@@ -2346,8 +2462,6 @@ def parse_tiff(data: bytes, from_file: bool = False) -> TiffImage:
     outcome, codec_name = tiff_compression_outcome(compression, bits, photometric)
     if outcome == "none":
         raise ValueError(f"TIFF with {codec_name} compression of these samples (cv2 returns None)")
-    if outcome == "lacks":
-        raise UnsupportedImage(f"TIFF with {codec_name} compression ({_READ})")
     planar = one(284, 1)
     if planar not in (1, 2):
         raise ValueError(f"TIFF with PlanarConfiguration {planar}")
@@ -2448,14 +2562,7 @@ def parse_tiff(data: bytes, from_file: bool = False) -> TiffImage:
             predictor = bits
         elif p != 1:
             raise ValueError(f"TIFF with predictor {p} on {bits}-bit samples (libtiff fails to set it up)")
-    orientation = one(274, 1)
-    if not 1 <= orientation <= 8:
-        orientation = 1
-    mirror = 0
-    if (322 in tags or 323 in tags) and orientation in (2, 3, 6, 7):
-        # libtiff mirrors each tile it reads where the orientation flips columns, and cv2
-        # then turns the image by the orientation without that flip
-        mirror, orientation = one(322, 0), {2: 1, 3: 4, 6: 7, 7: 6}[orientation]
+    orientation, mirror = _tiff_orientation(tags, one)
     chunks, chunk_hw = _tiff_layout(tags, get, one, data, height, width, spp, bits, planar, compression,
                                     read_planes, fmt, sub, from_file)
     tiled = 322 in tags or 323 in tags
@@ -2499,6 +2606,57 @@ def parse_tiff(data: bytes, from_file: bool = False) -> TiffImage:
                      tables)
 
 
+def _tiff_orientation(tags: dict, one) -> Tuple[int, int]:
+    """(the orientation cv2 turns the image by, the width of the tiles whose columns
+    libtiff mirrors or 0)."""
+    orientation = one(274, 1)
+    if not 1 <= orientation <= 8:
+        orientation = 1
+    if (322 in tags or 323 in tags) and orientation in (2, 3, 6, 7):
+        # libtiff mirrors each tile it reads where the orientation flips columns, and cv2
+        # then turns the image by the orientation without that flip
+        return {2: 1, 3: 4, 6: 7, 7: 6}[orientation], one(322, 0)
+    return orientation, 0
+
+
+def _sgilog_tiff(tags: dict, get, one, data: bytes, height: int, width: int, spp: int, bits: int,
+                 compression: int, photometric: int, from_file: bool) -> TiffImage:
+    """A LogL or LogLuv TIFF as cv2 5.0 reads it: libtiff's RGBA interface sets
+    SGILOGDATAFMT_8BIT, so its SGILog codec decodes each row (tif_luv.c: LogL16Decode's two
+    run-length byte planes, LogLuvDecode32's four, LogLuvDecode24's 3 raw bytes a pixel)
+    and turns it into bytes (L16toGry, Luv32toRGB, Luv24toRGB); a row whose data runs out,
+    and the rest of its chunk, stay zero. K12 undoes the run-length planes into words
+    (TiffChunk.sgi), SGILog24's whole rows are its raw bytes here, and K8 does the
+    conversion (TIFF_LOGL_FORMAT ...). ValueError where cv2 returns None (probed on cv2
+    5.0.0): another codec, SGILog24 on LogL, LogL of other than one sample of 1, 8 or 16
+    bits, LogLuv of other than three contiguous samples of 1, 2, 4, 8 or 16 bits."""
+    outcome, name = tiff_compression_outcome(compression, bits, photometric)
+    kind = "LogL" if photometric == TIFF_LOGL else "LogLuv"
+    if outcome != "decode":
+        raise ValueError(f"{kind} TIFF with {name} compression (cv2 returns None)")
+    if photometric == TIFF_LOGL:
+        if spp != 1 or bits not in (1, 8, 16):
+            raise ValueError(f"LogL TIFF of {spp} {bits}-bit samples (cv2 returns None)")
+        fmt = TIFF_LOGL_FORMAT
+    else:
+        if spp != 3 or bits not in (1, 2, 4, 8, 16) or one(284, 1) != 1:
+            raise ValueError(f"LogLuv TIFF of {spp} {bits}-bit samples{', separate planes' if one(284, 1) != 1 else ''}"
+                             f" (cv2 returns None)")
+        fmt = TIFF_LOGLUV24_FORMAT if compression == TIFF_SGILOG24 else TIFF_LOGLUV_FORMAT
+    word = SGILOG_WORD[fmt]
+    orientation, mirror = _tiff_orientation(tags, one)
+    chunks, chunk_hw = _tiff_layout(tags, get, one, data, height, width, 1, 8 * word, 1, compression, [0], fmt,
+                                    from_file=from_file)
+    for c in chunks:
+        if fmt == TIFF_LOGLUV24_FORMAT:  # LogLuvDecode24: whole rows while 3 bytes a pixel remain
+            whole = min(c.rows, len(c.raw) // c.row_bytes) * c.row_bytes
+            c.decoded = c.raw[:whole] + bytes(c.size - whole)
+        else:
+            c.sgi = word
+    return TiffImage(height, width, orientation, 8, 1, 1, 0, False, fmt, 3, -1, _palette(), chunks, mirror, chunk_hw,
+                     tables=("sgilog",))
+
+
 # ---------------------------------------------------------------------------- K8's batch
 # One image as K8 reads it (csrc/raw_image.cu enum Raw): [byte of its RGB in the call's
 # output, height, width (as decoded), format (RAW_*, TIFF_*_FORMAT), then for the raw
@@ -2536,7 +2694,8 @@ class RawBatch:
     rows, the TIFFs' host-decoded chunks, K11's coded chunks). The device buffer holds
     `host`, then K9's output (`lzw`'s: the GIF frames' indices, then the TIFF LZW chunks,
     zero before K9 writes them) from `lzw_at`, then K11's (zero before it writes) from
-    `fax_out`."""
+    `fax_out`, then K12's (K12's streams at `sgi_at` in the descriptor ints; zero before it
+    writes) from `sgi_out`."""
 
     host: np.ndarray  # uint8
     images: int
@@ -2554,16 +2713,24 @@ class RawBatch:
     faxes: int = 0
     fax_out: int = 0  # K11's output in the device buffer
     fax_bytes: int = 0
-    fax_runs: int = 0  # ints of run scratch (zero before K11) the CCITT images take
-    fax_runs_max: int = 0  # the most one image takes
+    fax_runs: int = 0  # ints of run scratch the CCITT chunks take (fax_area each)
+    fax_runs_max: int = 0  # the most one chunk takes
+    sgi_at: int = 0  # K12's stream table (SGI_INTS a stream) in the descriptor ints
+    sgis: int = 0
+    sgi_out: int = 0  # K12's output in the device buffer
+    sgi_bytes: int = 0
 
     @property
     def total(self) -> int:
-        return self.fax_out + self.fax_bytes
+        return self.sgi_out + self.sgi_bytes
 
     @property
     def fax_streams(self) -> np.ndarray:
         return self.desc[self.fax_at:self.fax_at + self.faxes * FAX_INTS].reshape(self.faxes, FAX_INTS)
+
+    @property
+    def sgi_streams(self) -> np.ndarray:
+        return self.desc[self.sgi_at:self.sgi_at + self.sgis * SGI_INTS].reshape(self.sgis, SGI_INTS)
 
     @property
     def desc(self) -> np.ndarray:
@@ -2599,20 +2766,29 @@ def raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[TiffImage], raws: Sequen
     table_parts: List[np.ndarray] = []
     for t in tiffs:
         if t.tables is not None and t.tables not in tables:
-            tables[t.tables] = table_at + sum(p.size for p in table_parts)
+            first = table_at + sum(p.size for p in table_parts)
+            if first & 1:  # each table from an even int: the SGILog tables hold doubles
+                table_parts.append(np.zeros(1, np.int32))
+                first += 1
+            tables[t.tables] = first
             table_parts.append(ycbcr_tables(*t.tables[1:]).reshape(-1) if t.tables[0] == "ycbcr" else
-                               lab_tables(t.tables[1]).view(np.int32))
+                               lab_tables(t.tables[1]).view(np.int32) if t.tables[0] == "lab" else sgilog_tables())
     chunk_at = table_at + sum(p.size for p in table_parts)
     work_at = chunk_at + n_chunks * TIFF_CHUNK_INTS
     most_rows = sum(c.rows for t in tiffs for c in t.chunks)  # K10's rows at most
     fax_at = work_at + n_chunks * K10_WORK_INTS + most_rows * K10_ROW_INTS
     n_fax = sum(c.fax >= 0 for t in tiffs for c in t.chunks)
-    byte0 = -(-4 * (fax_at + n_fax * FAX_INTS) // 16) * 16
+    sgi_at = fax_at + n_fax * FAX_INTS
+    n_sgi = sum(c.sgi > 0 for t in tiffs for c in t.chunks)
+    byte0 = -(-4 * (sgi_at + n_sgi * SGI_INTS) // 16) * 16
     pieces: List[Tuple[int, bytes]] = []
     byte_at = byte0
 
-    def put(b: bytes) -> int:
+    def put(b: bytes, align: int = 1) -> int:
         nonlocal byte_at
+        if byte_at % align:
+            pieces.append((byte_at, bytes(-byte_at % align)))
+            byte_at += -byte_at % align
         at = byte_at
         pieces.append((at, b))
         byte_at += len(b)
@@ -2629,6 +2805,7 @@ def raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[TiffImage], raws: Sequen
     rows: List[List[int]] = []
     host_chunks = []  # (chunk row, bytes): the TIFFs' host-decoded chunks, placed after the raw rows
     faxes: List[Tuple[int, TiffChunk, int]] = []  # (chunk row, chunk, image): K11's streams
+    sgis: List[Tuple[int, TiffChunk]] = []  # (chunk row, chunk): K12's streams
     jpeg_at, out_at, tile, lzw_bytes = 0, 0, 0, 0
     for i, (raw, kind, src) in enumerate(images):
         oh, ow = raw.out_hw
@@ -2664,6 +2841,8 @@ def raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[TiffImage], raws: Sequen
                         row[C_PREDICTOR], row[C_SWAB] = t.predictor, int(t.swab)
                     if c.fax >= 0:  # K11 decodes it into its output (offset fixed up below)
                         faxes.append((len(chunk_rows), c, i))
+                    elif c.sgi:  # K12 decodes it into its output (offset fixed up below)
+                        sgis.append((len(chunk_rows), c))
                     elif c.decoded is None:  # K9 decodes it into its output after the frames (offset fixed up below)
                         # K9's streams: the GIFs' first
                         row[C_SRC], row[C_STREAM] = at + lzw_bytes, len(gifs) + len(lzw)
@@ -2676,15 +2855,20 @@ def raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[TiffImage], raws: Sequen
         chunk_rows[k][C_SRC] = put(b)
     fax_rows, fax_bytes, fax_runs, fax_runs_max = [], 0, 0, 0
     for j, (k, c, image) in enumerate(faxes):  # [src, bytes, flavour, rows, width, row bytes, out (fixed up
-        #                                        below), odd, runs, next]
+        #                                        below), odd, runs, first, chunks]
         chunk_rows[k][C_SRC] = fax_bytes
-        first = j == 0 or faxes[j - 1][2] != image
-        if first and c.fax != FAX_THUNDER:  # an image's run arrays, kept from chunk to chunk as libtiff keeps them
-            runs_at, fax_runs = fax_runs, fax_runs + fax_scratch(c.fax, c.width)
-            fax_runs_max = max(fax_runs_max, fax_scratch(c.fax, c.width))
-        fax_rows.append([put(c.raw), len(c.raw), c.fax, c.rows, c.width, c.row_bytes, fax_bytes, c.odd,
-                         runs_at if c.fax != FAX_THUNDER else 0, int(j + 1 < len(faxes) and faxes[j + 1][2] == image)])
+        if j == 0 or faxes[j - 1][2] != image:
+            first, count = j, sum(f[2] == image for f in faxes)
+        area = fax_area(c.fax, c.width) if c.fax != FAX_THUNDER else 0
+        fax_rows.append([put(c.raw, 16), len(c.raw), c.fax, c.rows, c.width, c.row_bytes, fax_bytes, c.odd,
+                         fax_runs, first, count])
+        fax_runs, fax_runs_max = fax_runs + area, max(fax_runs_max, area)
         fax_bytes += c.size
+    sgi_rows, sgi_bytes = [], 0
+    for k, c in sgis:  # [src, bytes, word, rows, width, out (fixed up below)]
+        chunk_rows[k][C_SRC] = sgi_bytes
+        sgi_rows.append([put(c.raw), len(c.raw), c.sgi, c.rows, c.width, sgi_bytes])
+        sgi_bytes += c.size
     lzw_at = -(-byte_at // 16) * 16
     for i, (_, kind, _) in enumerate(images):
         if kind == "gif":
@@ -2703,7 +2887,12 @@ def raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[TiffImage], raws: Sequen
         chunk_rows[k, C_SRC] += fax_out
     fax_rows = np.asarray(fax_rows, np.int64).reshape(-1, FAX_INTS)
     fax_rows[:, F_OUT] += fax_out
-    if max(fax_out + fax_bytes, out_at, jpeg_at, tile, fax_runs) >= 2 ** 31:
+    sgi_out = fax_out + fax_bytes
+    for k, _ in sgis:
+        chunk_rows[k, C_SRC] += sgi_out
+    sgi_rows = np.asarray(sgi_rows, np.int64).reshape(-1, SGI_INTS)
+    sgi_rows[:, G_OUT] += sgi_out
+    if max(sgi_out + sgi_bytes, out_at, jpeg_at, tile, fax_runs) >= 2 ** 31:
         raise ValueError("raw image batch too large for one launch")
     host = np.empty(lzw_at, np.uint8)  # up to K9's output, no byte left unwritten: the pieces cover the rest
     host[:byte0] = 0
@@ -2719,11 +2908,13 @@ def raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[TiffImage], raws: Sequen
     desc[work_at + work.size:work_at + work.size + K10_ROW_INTS * k10_rows] = np.stack(
         [np.repeat(ids, rows_of), np.arange(k10_rows) - np.repeat(before[:-1], rows_of)], 1).reshape(-1)
     desc[fax_at:fax_at + fax_rows.size] = fax_rows.reshape(-1)
+    desc[sgi_at:sgi_at + sgi_rows.size] = sgi_rows.reshape(-1)
     for at, b in pieces:
         host[at:at + len(b)] = np.frombuffer(b, np.uint8)
     return RawBatch(host, len(images), chunk_at, work_at, len(work), int(before[-1]), tile, out_at,
                     [(int(r[R_OUT]), int(r[R_OUT_H]), int(r[R_OUT_W])) for r in rows], batch_lzw, lzw_at, len(gifs),
-                    fax_at, len(faxes), fax_out, fax_bytes, fax_runs, fax_runs_max)
+                    fax_at, len(faxes), fax_out, fax_bytes, fax_runs, fax_runs_max, sgi_at, len(sgis), sgi_out,
+                    sgi_bytes)
 
 
 def fax_scratch(mode: int, width: int) -> int:
@@ -2733,6 +2924,26 @@ def fax_scratch(mode: int, width: int) -> int:
     full row."""
     n = -(-(width + 1) // 32) * 32
     return 2 * (2 * n if mode in (FAX_G3_2D, FAX_G4) else n) + 8
+
+
+def fax_span(mode: int, width: int) -> int:
+    """Ints of run arrays K11 walks a chunk in: libtiff's two (fax_scratch) for the 2-D
+    flavours, two slots of them for the 1-D ones (a slot a row parity, so that a row's
+    fill can run while the next row decodes; 1-D rows read no other row's runs)."""
+    return fax_scratch(mode, width) * (1 if mode in (FAX_G3_2D, FAX_G4) else 2)
+
+
+def fax_row_ints(width: int) -> int:
+    """Ints of a K11 fill warp's row of bytes (a 1-bit row of `width` pixels, rounded to
+    16 bytes, and 16 more)."""
+    return (-(-(-(-width // 8)) // 16) * 16 + 16) // 4
+
+
+def fax_area(mode: int, width: int) -> int:
+    """Ints of K11's scratch a CCITT chunk takes: its run arrays (fax_span), then each fill
+    warp's row (fax_row_ints). The kernel keeps them in shared memory and saves the run
+    arrays here; an image too wide for shared memory works here."""
+    return fax_span(mode, width) + 2 * fax_row_ints(width)
 
 
 def tiff_jpeg_chunks(images: Sequence[TiffImage]) -> List[JpegImage]:
@@ -2863,9 +3074,9 @@ def check_file_read(data: bytes) -> None:
     and whose width is not its height, whatever else it holds (cv2 5.0's imread decodes
     into the image it allocated from the header and checks that the decoder kept it,
     `original_ptr == real_mat.data`; the TIFF decoder turns the image itself, and so
-    allocates it anew). UnsupportedImage where imread reads what imdecode returns None for:
-    an uncompressed tiled TIFF (data/tiff_compressions.json, "imread_differs"),
-    which this decoder does not read."""
+    allocates it anew). An uncompressed tiled TIFF, which imread can read where imdecode
+    returns None (data/tiff_compressions.json, "imread_differs"), decodes by its own rule
+    with `from_file` (_tiled_none_reads)."""
     if data[:4] not in TIFF_MAGICS:
         return
     try:
@@ -2878,8 +3089,6 @@ def check_file_read(data: bytes) -> None:
     if 5 <= orientation <= 8 and width != height:
         raise ValueError(f"a {width} x {height} TIFF of orientation {orientation}: cv2.imread returns None "
                          f"for it")
-    if compression == TIFF_NONE and (322 in tags or 323 in tags):
-        raise UnsupportedImage(f"uncompressed tiled TIFF read from a file (cv2.imread reads it; {_READ})")
 
 
 def imread(path: str, device: str | torch.device = "cuda") -> torch.Tensor:

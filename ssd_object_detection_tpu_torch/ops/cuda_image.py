@@ -4,8 +4,9 @@ dequantise + IDCT, upsample + colour + orientation; csrc/jpeg_progressive.cu: K6
 decode of progressive refinement scans; csrc/jpeg_smooth.cu: K7 block smoothing), resize
 (csrc/resize.cu: K4), PNG (csrc/png_unfilter.cu: K5), GIF and TIFF LZW (csrc/gif_lzw.cu:
 K9), the TIFF predictor and byte swap (csrc/tiff_assemble.cu: K10), TIFF's CCITT and
-ThunderScan chunks (csrc/ccitt_decode.cu: K11) and BMP, PxM, PAM, Sun raster, PFM, HDR and
-TIFF pixels and GIF palette indices (csrc/raw_image.cu: K8).
+ThunderScan chunks (csrc/ccitt_decode.cu: K11), TIFF's SGILog chunks (csrc/sgilog_decode.cu:
+K12) and BMP, PxM, PAM, Sun raster, PFM, HDR and TIFF pixels and GIF palette indices
+(csrc/raw_image.cu: K8).
 
 None replaces a Pallas kernel: the JAX package decodes and resizes with cv2 on the host
 (ssd_object_detection_tpu/data/pipeline.py:70-125, eval/serve.py:248-260 and :374-381).
@@ -40,9 +41,13 @@ What bounds them on an H100 (ops/cuda_image.py::bound_bytes gives the byte count
      first 64 bytes staged through shared memory 16 bytes a lane with the DCs of a
      two-block halo, the changed 16-byte pieces stored back; one launch a call (two where
      a component's own DCs may change: they are copied aside first); the estimates'
-     arithmetic bounds it (PERF.md §6). K11 is a CTA an image, one thread walking its CCITT
-     or ThunderScan chunks in turn (libtiff's decoders step by step) with the tables and
-     run arrays in shared memory, one launch a call; the serial walk bounds it. K8 is one launch a decode
+     arithmetic bounds it (PERF.md §6). K11 is a CTA a chunk, one launch a call: each CCITT
+     chunk decoded from the state libtiff gives a chunk (its guess, checked by what it
+     read; ops/fax_schedule_model.py), a lane walking the codes with the tables, run
+     arrays and staged bytes in shared memory while two warps fill the rows, the image's
+     last CTA decoding again, in order, from the first chunk whose guess failed; the walks
+     bound it. K12 is a warp an SGILog chunk, one launch a call, lane 0 reading each row's
+     control bytes and the warp expanding their runs; the byte walk bounds it. K8 is one launch a decode
      call (codec.raw_batch: the call's descriptors and bytes in one upload, read as they
      are), a CTA a tile of 8 x 128 output pixels of one image, a warp a row, a lane every
      32nd pixel (four a lane, their loads together), the row staged in shared memory and
@@ -92,8 +97,9 @@ RAW_SOURCE = _cuda_build.CSRC / "raw_image.cu"
 GIF_SOURCE = _cuda_build.CSRC / "gif_lzw.cu"
 TIFF_SOURCE = _cuda_build.CSRC / "tiff_assemble.cu"
 CCITT_SOURCE = _cuda_build.CSRC / "ccitt_decode.cu"
+SGILOG_SOURCE = _cuda_build.CSRC / "sgilog_decode.cu"
 SOURCES = (JPEG_SOURCE, PROGRESSIVE_SOURCE, RESIZE_SOURCE, PNG_SOURCE, SMOOTH_SOURCE, RAW_SOURCE, GIF_SOURCE,
-           TIFF_SOURCE, CCITT_SOURCE)
+           TIFF_SOURCE, CCITT_SOURCE, SGILOG_SOURCE)
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
@@ -123,7 +129,10 @@ _SIGNATURES = {
         "ssd_tiff_assemble": ([_P, _I, _I, _I, _I, _P, _P], _I),
     },
     CCITT_SOURCE: {
-        "ssd_ccitt_decode": ([_P, _I, _I, _P, _P, _I, _P], _I),
+        "ssd_ccitt_decode": ([_P, _I, _I, _P, _P, _P, _I, _P], _I),
+    },
+    SGILOG_SOURCE: {
+        "ssd_sgilog_decode": ([_P, _I, _I, _P], _I),
     },
 }
 
@@ -580,7 +589,8 @@ def decode_raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[codec.TiffImage],
     """Parsed GIFs, TIFFs and raw images (BMP, PxM, PAM, Sun raster, PFM, HDR) -> uint8
     (H, W, 3) RGB views on `device`, in that order, through one upload (codec.raw_batch),
     one K9 call for every GIF frame and TIFF LZW chunk (where there are any), one K11 call
-    for every CCITT and ThunderScan chunk (where there are any), one K10 call
+    for every CCITT and ThunderScan chunk and one K12 call for every SGILog chunk (where
+    there are any), one K10 call
     for the TIFF chunks with a predictor or a byte swap (where there are any) and one K8
     call for every image. `jpeg_pixels`: the TIFFs' JPEG chunks as the JPEG kernels decoded
     them (1-D uint8, back to back in codec.tiff_jpeg_chunks' order), which K8 reads in
@@ -601,6 +611,7 @@ def decode_raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[codec.TiffImage],
         _, status = lzw_decode(batch.lzw.to(device) if device.type == "cuda" else batch.lzw,
                                out=buffer[batch.lzw_at:])
     ccitt_decode(buffer, batch)
+    sgilog_decode(buffer, batch)
     if batch.gifs:
         for st in status[:batch.gifs].cpu().tolist():
             if st != codec.GIF_OK:
@@ -611,23 +622,26 @@ def decode_raw_batch(gifs: Sequence[GifImage], tiffs: Sequence[codec.TiffImage],
 
 
 def upload(batch: codec.RawBatch, device: torch.device) -> torch.Tensor:
-    """The call's device buffer: `batch.host` in one copy, K9's TIFF chunks and K11's
-    output zeroed (both leave a chunk's bytes past what decoded as they were)."""
+    """The call's device buffer: `batch.host` in one copy, K9's TIFF chunks and K11's and
+    K12's output zeroed (they leave a chunk's bytes past what decoded as they were)."""
     buffer = torch.empty((max(batch.total, 1),), dtype=torch.uint8, device=device)
     buffer[:batch.host.size].copy_(torch.from_numpy(batch.host), non_blocking=True)
-    if batch.lzw.tiff_bytes or batch.fax_bytes:
+    if batch.lzw.tiff_bytes or batch.fax_bytes or batch.sgi_bytes:
         buffer[batch.lzw_at + batch.lzw.frame_indices:batch.total].zero_()
     return buffer
 
 
 # ---------------------------------------------------------------------------- K11
-def ccitt_decode(buffer: torch.Tensor, batch: codec.RawBatch) -> torch.Tensor:
+def ccitt_decode(buffer: torch.Tensor, batch: codec.RawBatch, records: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
     """K11, in a decode call's device `buffer` (`upload`'s): every CCITT and ThunderScan
     chunk of the call (codec.RawBatch's K11 streams) decoded into its rows at `fax_out`,
-    as libtiff 4.7's tif_fax3.c and tif_thunder.c decode them. One launch, a CTA an image,
-    one thread of it walking its chunks in turn, libtiff's tables and the image's run
-    arrays in shared memory (`runs`, zeroed, where the widest image's do not fit); none
-    where the call has no such chunk."""
+    as libtiff 4.7's tif_fax3.c and tif_thunder.c decode them. One launch, a CTA a chunk:
+    each CCITT chunk from the state libtiff gives a chunk, the image's last CTA decoding
+    again from the first chunk whose guess failed (ops/fax_schedule_model.py replays it);
+    none where the call has no such chunk. `records`: an optional int32 (faxes,
+    codec.FAX_RECORD_INTS) tensor on the card, zero, into which the kernel writes what each
+    chunk's guess relied on and where each image's repair started."""
     if _route(buffer) == "cpu":
         if batch.faxes:
             plain_image.ccitt_decode(buffer.numpy(), batch.fax_streams, buffer.numpy())
@@ -636,10 +650,15 @@ def ccitt_decode(buffer: torch.Tensor, batch: codec.RawBatch) -> torch.Tensor:
     _check("buffer", buffer, torch.uint8, device)
     if batch.faxes == 0:
         return buffer
-    runs = torch.zeros((max(batch.fax_runs, 1),), dtype=torch.int32, device=device)  # libtiff zeroes them
+    if records is None:
+        records = torch.zeros((batch.faxes, codec.FAX_RECORD_INTS), dtype=torch.int32, device=device)
+    _check("records", records, torch.int32, device)
+    if tuple(records.shape) != (batch.faxes, codec.FAX_RECORD_INTS):
+        raise ValueError(f"records of shape {tuple(records.shape)} for {batch.faxes} streams")
+    runs = torch.empty((max(batch.fax_runs, 1),), dtype=torch.int32, device=device)  # saved arrays, read by prefix
     lib = _library(CCITT_SOURCE)
     err = lib.ssd_ccitt_decode(buffer.data_ptr(), batch.fax_at, batch.faxes, _fax_tables(device).data_ptr(),
-                               runs.data_ptr(), batch.fax_runs_max, _stream(device))
+                               runs.data_ptr(), records.data_ptr(), batch.fax_runs_max, _stream(device))
     _cuda_build.check_launch(lib, err, "CCITT and ThunderScan kernel launch")
     ccitt_decode.launches += 1
     return buffer
@@ -649,6 +668,27 @@ def ccitt_decode(buffer: torch.Tensor, batch: codec.RawBatch) -> torch.Tensor:
 def _fax_tables(device: torch.device) -> torch.Tensor:
     """libtiff's three CCITT state tables (plain_image.fax_tables) on `device`, uploaded once."""
     return torch.from_numpy(plain_image.fax_tables()).to(device)
+
+
+# ---------------------------------------------------------------------------- K12
+def sgilog_decode(buffer: torch.Tensor, batch: codec.RawBatch) -> torch.Tensor:
+    """K12, in a decode call's device `buffer` (`upload`'s): every SGILog chunk of the
+    call (codec.RawBatch's K12 streams) decoded into its words at `sgi_out`, as libtiff
+    4.7's tif_luv.c LogL16Decode and LogLuvDecode32 undo their run-length byte planes. One
+    launch, a warp a chunk; none where the call has no such chunk."""
+    if _route(buffer) == "cpu":
+        if batch.sgis:
+            plain_image.sgilog_decode(buffer.numpy(), batch.sgi_streams, buffer.numpy())
+        return buffer
+    device = buffer.device
+    _check("buffer", buffer, torch.uint8, device)
+    if batch.sgis == 0:
+        return buffer
+    lib = _library(SGILOG_SOURCE)
+    err = lib.ssd_sgilog_decode(buffer.data_ptr(), batch.sgi_at, batch.sgis, _stream(device))
+    _cuda_build.check_launch(lib, err, "SGILog kernel launch")
+    sgilog_decode.launches += 1
+    return buffer
 
 
 # ---------------------------------------------------------------------------- K10
@@ -705,7 +745,7 @@ def decode_raw(raw: codec.RawImage, device: torch.device) -> torch.Tensor:
 
 # ---------------------------------------------------------------------------- accounting
 KERNELS = (entropy_decode, idct_color, resize, png_decode, progressive_entropy, block_smooth, raw_expand,
-           lzw_decode, tiff_assemble, ccitt_decode)
+           lzw_decode, tiff_assemble, ccitt_decode, sgilog_decode)
 for _k in KERNELS:
     _k.launches = 0
 
@@ -742,7 +782,7 @@ def bound_bytes(kernel: str, **shape) -> int:
         return shape["blocks"] * codec.SMOOTHING_COEFS * 2 * 2
     if kernel == "block_smooth_sectors":  # the 32-byte sectors holding them: a block's first 64 bytes in and out
         return shape["blocks"] * 64 * 2
-    if kernel == "ccitt":  # the coded chunks in, the decoded rows out
+    if kernel in ("ccitt", "sgilog"):  # the coded chunks in, the decoded rows (words) out
         return shape["in_bytes"] + shape["out_bytes"]
     if kernel == "raw_expand":  # the rows in, RGB out
         return shape["in_bytes"] + shape["pixels"] * 3

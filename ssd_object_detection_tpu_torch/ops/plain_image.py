@@ -1033,6 +1033,16 @@ def _tiff_pixels(buffer, desc, chunk_at, jpeg, row, palette, y, x) -> np.ndarray
         return lab_rgb(table, (l * 257).astype(np.float32) * np.float32(100) / np.float32(65535),
                        ((a - ((a & 0x80) << 1)) * 256).astype(np.float32) / np.float32(256) / np.float32(500),
                        ((b - ((b & 0x80) << 1)) * 256).astype(np.float32) / np.float32(256) / np.float32(200))
+    if fmt in codec.SGILOG_WORD:
+        word = codec.SGILOG_WORD[fmt]
+        _, col, read = _chunk_bytes(buffer, desc, chunk_at, jpeg, row, 0, y, x)
+        b = [read(col * word + i) for i in range(word)]
+        table = desc[row[codec.R_TABLE]:row[codec.R_TABLE] + codec.SGILOG_TABLE_INTS]
+        if fmt == codec.TIFF_LOGL_FORMAT:
+            return np.repeat(logl_gray(table, b[0] | b[1] << 8)[..., None], 3, -1)
+        if fmt == codec.TIFF_LOGLUV_FORMAT:
+            return logluv_rgb(table, b[0] | b[1] << 8 | b[2] << 16 | b[3] << 24, False)
+        return logluv_rgb(table, b[0] << 16 | b[1] << 8 | b[2], True)
     rgb = [s(c if colour == 3 else 0) for c in range(3)]
     if alpha >= 0:  # unassociated alpha: libtiff's UaToAa premultiplies
         a = s(alpha)
@@ -1082,6 +1092,57 @@ def lab_rgb(table: np.ndarray, lum: np.ndarray, a: np.ndarray, b: np.ndarray) ->
         level = table[codec.LAB_HEADER + gun * (codec.LAB_RANGE + 1) + i].astype(np.float64)
         out.append(np.minimum(np.where(level > 0, level + 0.5, level - 0.5).astype(np.int64), int(vrw)))
     return np.stack(out, -1).astype(np.uint8)
+
+
+def _sgilog_y(table: np.ndarray, p16: np.ndarray) -> np.ndarray:
+    """tif_luv.c LogL16toY of 16-bit LogL values (through codec.sgilog_tables' exp)."""
+    y = table[:2 * 32768].view(np.float64)[p16 & 0x7fff]
+    return np.where(p16 & 0x8000, -y, y)
+
+
+def _gamma_byte(v: np.ndarray) -> np.ndarray:
+    """tif_luv.c's 8-bit output of a linear value: 0 at or below 0, 255 at or above 1,
+    else (int)(256. * sqrt(v))."""
+    with np.errstate(invalid="ignore"):
+        inside = (256.0 * np.sqrt(np.where((v > 0) & (v < 1), v, 0.0))).astype(np.int64)
+    return np.where(v <= 0, 0, np.where(v >= 1, 255, inside)).astype(np.uint8)
+
+
+def logl_gray(table: np.ndarray, p16: np.ndarray) -> np.ndarray:
+    """tif_luv.c L16toGry: LogL -> 8-bit gray."""
+    return _gamma_byte(_sgilog_y(table, p16))
+
+
+def logluv_rgb(table: np.ndarray, p: np.ndarray, packed24: bool) -> np.ndarray:
+    """tif_luv.c Luv32toRGB (LogLuv32toXYZ) or Luv24toRGB (LogLuv24toXYZ, uv_decode), then
+    XYZtoRGB24, every step in double as the C evaluates it, X, Y and Z rounded to float
+    first; a pixel of L at or below 0 is black. -> uint8 (..., 3)."""
+    p = np.asarray(p, np.int64)
+    if packed24:
+        big = table[2 * 32768:2 * (32768 + 1024)].view(np.float64)[(p >> 14) & 0x3ff]
+        lum = big
+        ce = p & 0x3fff
+        uv = table[2 * (32768 + 1024):].reshape(-1, 2)
+        ustart, ncum = uv[:, 0].view(np.float32).astype(np.float64), uv[:, 1].astype(np.int64)
+        vi = np.searchsorted(ncum, np.minimum(ce, codec.SGILOG_UV_NDIVS - 1), "right") - 1
+        sq = np.float64(codec.SGILOG_UV_SQSIZ)
+        u = ustart[vi] + ((ce - ncum[vi]) + .5) * sq
+        v = np.float64(codec.SGILOG_UV_VSTART) + (vi + .5) * sq
+        out = ce >= codec.SGILOG_UV_NDIVS  # uv_decode fails: the neutral colour
+        u, v = np.where(out, codec.SGILOG_U_NEU, u), np.where(out, codec.SGILOG_V_NEU, v)
+    else:
+        lum = _sgilog_y(table, (p >> 16) & 0xffff)
+        u = 1. / codec.SGILOG_UVSCALE * (((p >> 8) & 0xff) + .5)
+        v = 1. / codec.SGILOG_UVSCALE * ((p & 0xff) + .5)
+    with np.errstate(all="ignore"):
+        s = 1. / (6. * u - 16. * v + 12.)
+        x, y = 9. * u * s, 4. * v * s
+        xyz = [(x / y * lum).astype(np.float32), lum.astype(np.float32), ((1. - x - y) / y * lum).astype(np.float32)]
+    xyz = [np.where(lum > 0, c, np.float32(0)).astype(np.float64) for c in xyz]
+    r = 2.690 * xyz[0] + -1.276 * xyz[1] + -0.414 * xyz[2]
+    g = -1.022 * xyz[0] + 1.978 * xyz[1] + 0.044 * xyz[2]
+    b = 0.061 * xyz[0] + -0.224 * xyz[1] + 1.163 * xyz[2]
+    return np.stack([_gamma_byte(c) for c in (r, g, b)], -1)
 
 
 def _window(data, fmt, offset, stride, channels, maxval, big_endian, height, width, palette, scale):
@@ -1443,7 +1504,7 @@ def fill_runs(row: np.ndarray, runs: List[int], at: int, end: int, lastx: int) -
 
 
 def fax_decode(raw: bytes, mode: int, rows: int, width: int, row_bytes: int, odd: int, out: np.ndarray,
-               noeol: bool = False, runs: Optional[List[int]] = None) -> bool:
+               noeol: bool = False, runs: Optional[List[int]] = None, fill=None) -> bool:
     """K11's CCITT flavours: libtiff 4.7's tif_fax3.c decoders of one chunk into `out`
     (uint8, rows x row_bytes, zero where nothing decodes): Fax3DecodeRLE (modified Huffman,
     each row byte-aligned; RLEW word-aligned, `odd` the parity of the chunk's first byte's
@@ -1454,7 +1515,12 @@ def fax_decode(raw: bytes, mode: int, rows: int, width: int, row_bytes: int, odd
     A decoding error fills the row as far as it got and ends the chunk. Group 3 rows
     start at an EOL; where the data runs out after an EOL's zeros, libtiff takes the file
     for one without EOLs (FAXMODE_NOEOL, kept for the image's later chunks: `noeol` in,
-    the mode after out) and reads again from the chunk's first bit into the same row."""
+    the mode after out) and reads again from the chunk's first bit into the same row.
+    `fill(row, runs, at, end, lastx)` fills a row (fill_runs; the replay of K11's schedule
+    passes its own, and run arrays with `start_row` and `use` methods that watch what the
+    reference line's position b1 reads: ops/fax_schedule_model.Tracked)."""
+    fill = fill or fill_runs
+    use = getattr(runs, "use", None)  # b1's value decides something (K11's replay)
     main, white, black = (fax_tables()[a:b] for a, b in ((0, FAX_WHITE_AT), (FAX_WHITE_AT, FAX_BLACK_AT),
                                                           (FAX_BLACK_AT, None)))
     lastx = width
@@ -1503,6 +1569,8 @@ def fax_decode(raw: bytes, mode: int, rows: int, width: int, row_bytes: int, odd
         row = out[line * row_bytes:(line + 1) * row_bytes]
         thisrun = cur
         s = dict(a0=0, rl=0, pa=thisrun, pb=0, b1=0)
+        if use:
+            R.start_row(thisrun)
 
         def put(v):
             if s["pa"] >= len(R) - 1:  # past the run arrays (libtiff writes on; not pinned)
@@ -1572,12 +1640,16 @@ def fax_decode(raw: bytes, mode: int, rows: int, width: int, row_bytes: int, odd
             cleanup()
 
         def check_b1():
+            if use:
+                use()
             if s["pa"] != thisrun:
                 while s["b1"] <= s["a0"] and s["b1"] < lastx:
                     if s["pb"] + 1 >= ref_end:
                         raise _FaxAbort
                     s["b1"] = _i32(s["b1"] + _u32(R[s["pb"]] + R[s["pb"] + 1]))
                     s["pb"] += 2
+                    if use:
+                        use()
 
         def expand2d():
             """EXPAND2D, ending in CLEANUP_RUNS (eol2d); _FaxEOF after it on eof2d."""
@@ -1592,6 +1664,8 @@ def fax_decode(raw: bytes, mode: int, rows: int, width: int, row_bytes: int, odd
                             raise _FaxAbort
                         s["b1"] = _i32(s["b1"] + R[s["pb"]])
                         s["pb"] += 1
+                        if use:
+                            use()
                         s["rl"] = _i32(s["rl"] + s["b1"] - s["a0"])
                         s["a0"] = s["b1"]
                         s["b1"] = _i32(s["b1"] + R[s["pb"]])
@@ -1698,13 +1772,13 @@ def fax_decode(raw: bytes, mode: int, rows: int, width: int, row_bytes: int, odd
                     except _FaxEOF:
                         pass
                     clr(13)
-                fill_runs(row, R, thisrun, s["pa"], lastx)
+                fill(row, R, thisrun, s["pa"], lastx)
                 return noeol
         except _FaxAbort:
             return noeol
         except _FaxRetry:
             continue
-        fill_runs(row, R, thisrun, s["pa"], lastx)
+        fill(row, R, thisrun, s["pa"], lastx)
         if mode == codec.FAX_RLE:
             clr(st["avail"] - (st["avail"] & ~7))
         elif mode == codec.FAX_RLEW:
@@ -1785,14 +1859,16 @@ def thunder_decode(raw: bytes, rows: int, width: int, row_bytes: int, out: np.nd
 def ccitt_decode(data: np.ndarray, streams: np.ndarray, out: np.ndarray) -> np.ndarray:
     """K11 over a decode call's streams (codec.FAX_INTS rows: the coded bytes at their
     offset in `data`, each decoded into `out` at its byte, which is zero before): the
-    CCITT flavours through fax_decode, an image's chunks in turn (the Group 3 decoder's
-    FAXMODE_NOEOL carries from one to the next), ThunderScan through thunder_decode.
-    Returns `out`."""
+    CCITT flavours through fax_decode, an image's chunks in turn (the run arrays and the
+    Group 3 decoder's FAXMODE_NOEOL carry from one to the next), ThunderScan through
+    thunder_decode. Returns `out`."""
     noeol, runs = False, None  # an image's: libtiff keeps them from chunk to chunk
-    for row in streams.tolist():
-        src, nbytes, mode, rows, width, row_bytes, at, odd, chained = (row[f] for f in (
+    for k, row in enumerate(streams.tolist()):
+        src, nbytes, mode, rows, width, row_bytes, at, odd, first = (row[f] for f in (
             codec.F_SRC, codec.F_BYTES, codec.F_MODE, codec.F_ROWS, codec.F_WIDTH, codec.F_ROW_BYTES, codec.F_OUT,
-            codec.F_ODD, codec.F_NEXT))
+            codec.F_ODD, codec.F_FIRST))
+        if k == first:
+            noeol, runs = False, None
         raw = bytes(data[src:src + nbytes])
         chunk = out[at:at + rows * row_bytes]
         if mode == codec.FAX_THUNDER:
@@ -1800,6 +1876,57 @@ def ccitt_decode(data: np.ndarray, streams: np.ndarray, out: np.ndarray) -> np.n
         else:
             runs = runs or [0] * codec.fax_scratch(mode, width)
             noeol = fax_decode(raw, mode, rows, width, row_bytes, odd, chunk, noeol, runs)
-        if not chained:
-            noeol, runs = False, None
+    return out
+
+
+# ---------------------------------------------------------------------------- K12
+def sgilog_rows(raw: bytes, rows: int, width: int, word: int) -> Tuple[np.ndarray, int]:
+    """K12 on one SGILog chunk: tif_luv.c's LogL16Decode (word 2) or LogLuvDecode32
+    (word 4), a row at a time from where the last one stopped: each row's byte planes, the
+    highest first, each a run of control bytes (128 + n - 2: the next byte n times; n below
+    128: the next n bytes; 0 a no-op), every pixel's word ORed from zero. -> (uint32 words
+    (rows, width), the rows decoded): a row whose data runs out before a plane is whole
+    fails, and it and the rest of the chunk stay zero (libtiff skips its conversion and
+    decodes no more of the chunk)."""
+    words = np.zeros((rows, width), np.uint32)
+    bp, cc = 0, len(raw)
+    for line in range(rows):
+        tp = [0] * width
+        for shft in range(8 * (word - 1), -1, -8):
+            i = 0
+            while i < width and cc > 0:
+                if raw[bp] >= 128:  # a run
+                    if cc < 2:
+                        break
+                    rc, b = raw[bp] + 2 - 128, raw[bp + 1] << shft
+                    bp, cc = bp + 2, cc - 2
+                    while rc and i < width:
+                        tp[i] |= b
+                        i, rc = i + 1, rc - 1
+                else:  # bytes as they are: `while (--cc && rc-- && i < npixels)`
+                    rc = raw[bp]
+                    bp += 1
+                    while True:
+                        cc -= 1
+                        if not cc or not rc:
+                            break
+                        rc -= 1
+                        if i >= width:
+                            break
+                        tp[i] |= raw[bp] << shft
+                        bp, i = bp + 1, i + 1
+            if i != width:
+                return words, line
+        words[line] = tp
+    return words, rows
+
+
+def sgilog_decode(data: np.ndarray, streams: np.ndarray, out: np.ndarray) -> np.ndarray:
+    """K12 over a decode call's streams (codec.SGI_INTS rows: the coded bytes at their
+    offset in `data`, each chunk's words, little-endian, into `out` at its byte, which is
+    zero before). Returns `out`."""
+    for src, nbytes, word, rows, width, at in streams.tolist():
+        words, _ = sgilog_rows(bytes(data[src:src + nbytes]), rows, width, word)
+        out[at:at + rows * width * word] = words.astype("<u4").view(np.uint8).reshape(rows, width, 4)[
+            ..., :word].reshape(-1)
     return out

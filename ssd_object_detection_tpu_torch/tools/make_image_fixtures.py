@@ -28,9 +28,8 @@ Images are drawn as tools/make_fake_coco.py draws them (shapes over smooth gradi
     an AC first scan after its refinement);
   - refused (UnsupportedImage, cv2 reads them): an AVIF body (cv2's encoder), the same
     with its major brand `mif1` (`avif` only among the compatible brands), PAMs with
-    alpha (cv2 fills most of their pixels from memory it never wrote), a 1-channel PFM,
-    an uncompressed TIFF of 4-sample tiles and a YCbCr TIFF of 4 x 4 units that are no
-    whole number of scanlines;
+    alpha (cv2 fills most of their pixels from memory it never wrote), a 1-channel PFM
+    and a YCbCr TIFF of 4 x 4 units that are no whole number of scanlines;
   - TIFFs (PIL's libtiff writer, cv2's, and a small writer here) of every kind the
     reader reads, and JPEG-in-TIFFs: PIL's one-strip RGB, YCbCr and gray, and strips or
     tiles written here from cv2's JPEG streams with their tables moved into tag 347 (4:2:0,
@@ -40,7 +39,12 @@ Images are drawn as tools/make_fake_coco.py draws them (shapes over smooth gradi
     codecs (PIL's libtiff writer and a writer here: modified Huffman, RLEW, Group 3 1-D
     and 2-D, with fill bits, without EOLs, in tiles, Group 4, a 1728 x 2200 fax page),
     ThunderScan and old-style LZW codes (fax_fixtures);
-  - `data/tiff_compressions.json` (`--table`): cv2.imdecode (and cv2.imread) of ten small
+  - SGILog TIFFs from encoders here (tif_luv.c's LogL16Encode, LogLuvEncode32 and
+    LogLuvEncode24): LogL and LogLuv in strips and tiles, every sign of L and L zero, runs
+    at the run-length coder's thresholds, out-of-gamut colour indices, a cut strip, 8-bit
+    tags and an orientation (sgilog_fixtures); uncompressed tiles whose bytes fill
+    libtiff's read buffer or not, read from bytes and from files;
+  - `data/tiff_compressions.json` (`--table`): cv2.imdecode (and cv2.imread) of eleven small
     TIFFs at every compression code 0-65535 (compression_table; `--skip-compressions`
     leaves it);
   - PAMs (P7) as cv2 5.0 reads them: cv2's own (RGB, no TUPLTYPE), RGB, GRAYSCALE and
@@ -92,7 +96,6 @@ NEW_SEAMS = (1, 9, 17, 33)  # widths at 4:1:1 and 4:1:0 (MCUs 32 wide); heights 
 # fixtures the port refuses though cv2 reads them: name -> what the refusal names
 REFUSED = {"other_8x6.avif": "AVIF", "other_gray_8x6.pfm": "1-channel PFM", "other_mif1_8x6.avif": "AVIF",
            "pam_rgb_alpha_37x23.pam": "alpha", "pam_gray_alpha_37x23.pam": "alpha",
-           "tiff_refused_rgba_tiles_37x23.tif": "uncompressed tiled",
            "tiff_refused_ycbcr44_odd_units_33x17.tif": "no whole number of scanlines"}
 # fixtures cv2 returns None for, where the port raises ValueError: name -> what is wrong
 INVALID = {
@@ -136,7 +139,15 @@ INVALID = {
     "tiff_invalid_ycbcr_planar22_37x23.tif": "YCbCr in separate planes at 2 x 2",
     "tiff_invalid_ycbcr_alpha_37x23.tif": "YCbCr with an alpha sample",
     "tiff_jpeg_invalid_ycbcr_alpha_37x23.tif": "JPEG-in-TIFF of YCbCr and an alpha sample in one plane",
+    "tiff_invalid_tiles_rgb_37x23.tif": "uncompressed tiles of 768 bytes (libtiff's read buffer holds 1,024)",
+    "tiff_invalid_tiles_gray_37x23.tif": "uncompressed tiles of 256 bytes (libtiff's read buffer holds 1,024)",
+    "tiff_invalid_sgilog24_logl_37x23.tif": "SGILog24 on LogL",
+    "tiff_invalid_sgilog_planar_37x23.tif": "LogLuv in separate planes",
+    "tiff_invalid_sgilog_logl_2bit_37x23.tif": "LogL of 2-bit samples",
 }
+# fixtures cv2.imread reads otherwise than cv2.imdecode (a TIFF file is mapped into
+# memory): their file reads go into digests.json's "file_reads"
+FILE_READS = ("tiff_invalid_tiles_rgb_37x23.tif", "tiff_invalid_tiles_gray_37x23.tif", "tiff_tiles_rgba_short_37x23.tif")
 
 
 def sha(a: np.ndarray) -> str:
@@ -1004,14 +1015,14 @@ def _code2d(row: np.ndarray, ref: np.ndarray) -> str:
     return "".join(out)
 
 
-def fax_rows(bits: np.ndarray, mode: str) -> bytes:
+def fax_rows(bits: np.ndarray, mode: str, prefix: str = "") -> bytes:
     """CCITT coding of rows of bits (True black), 1-D (modified Huffman) but where said:
     "rle" each row byte-aligned (compression 2), "rlew" word-aligned (32771), "g3" each row
     after an EOL (compression 3), "g3fill" with fill bits before each EOL so that it ends a
     byte (T4Options bit 2), "noeol" the rows back to back (compression 3 without EOLs),
     "g3_2d" each row after an EOL and its tag bit, the first 1-D and the rest 2-D (T4Options
-    bit 0), "g4" every row 2-D, no EOL (compression 4)."""
-    out = []
+    bit 0), "g4" every row 2-D, no EOL (compression 4); `prefix`: code bits before them."""
+    out = [prefix]
     ref = np.zeros(np.asarray(bits).shape[1:], bool)
     for k, row in enumerate(np.asarray(bits, bool)):
         if mode in ("g3", "g3fill", "g3_2d"):
@@ -1178,18 +1189,186 @@ def fax_fixtures(cv2) -> dict:
     files["tiff_lzw_new_then_old_37x23.tif"] = tiff(tiff_tags(37, 23, 8, 1, 1, 5, rows=12),
                                                     [tiff_lzw_pack(tiff_lzw_codes(gray[:12].tobytes())),
                                                      old(gray[12:].tobytes())])
-    # still refused (cv2 reads it): uncompressed tiles of 4 samples
+    # the 1728 x 2200 page in one strip: the walk's cost a code word, with nothing to spread
+    buf = __import__("io").BytesIO()
+    Image.fromarray(text_page(2200, 1728, 86)).save(buf, "TIFF", compression="group4", tiffinfo={278: 2200})
+    files["tiff_ccitt_g4_page_one_strip_1728x2200.tif"] = buf.getvalue()
+    # a Group 4 strip whose first row (VL1, a horizontal pair of empty runs, a pass) walks its
+    # reference line past the white line Fax3PreDecode sets: it reads the run arrays the
+    # strip before left, as libtiff does
+    strips = [fax_rows(bits[y:y + 8], "g4") for y in range(0, 23, 8)]
+    strips[1] = fax_rows(bits[8:16], "g4", "010" + "001" + t4_run(0, True) + t4_run(0, False) + "0001")
+    files["tiff_ccitt_g4_past_white_37x23.tif"] = tiff(tiff_tags(37, 23, 1, 1, 0, 4, rows=8), strips)
+    files.update(uncompressed_tile_fixtures(rgb, gray))
+    return files
+
+
+def _tiles(pixels: np.ndarray, th: int, tw: int, planes: bool = False) -> list:
+    """The tiles of (h, w, c) pixels, row by row, cut at the right and bottom edges and
+    padded with zeros; `planes`: each sample's plane of tiles in turn."""
+    h, w, c = pixels.shape
+    pad = np.zeros((-(-h // th) * th, -(-w // tw) * tw, c), pixels.dtype)
+    pad[:h, :w] = pixels
+    cut = [pad[y:y + th, x:x + tw] for y in range(0, h, th) for x in range(0, w, tw)]
+    return [t[..., k].tobytes() for k in range(c) for t in cut] if planes else [t.tobytes() for t in cut]
+
+
+def uncompressed_tile_fixtures(rgb: np.ndarray, gray: np.ndarray) -> dict:
+    """Uncompressed tiled TIFFs (codec._tiled_none_reads): tiles of 1,024 bytes, which
+    cv2.imdecode reads (4-sample 16 x 16, gray 32 x 32, separate RGB planes of 32 x 32);
+    tiles of 768 and 256 bytes, which only cv2.imread of the file reads; a 1,024-byte tile
+    whose byte count is 1,000 (zero from bytes, None from a file)."""
+    files = {}
     rgba = np.dstack([rgb, gray])
-    tiles = []
-    for y in range(0, 23, th):
-        for x in range(0, 37, tw):
-            t = np.zeros((th, tw, 4), np.uint8)
-            part = rgba[y:y + th, x:x + tw]
-            t[:part.shape[0], :part.shape[1]] = part
-            tiles.append(t.tobytes())
-    tags = tiff_tags(37, 23, 8, 4, 2, 1, tile_width=tw, tile_length=th, extra=2)
+    for name, pixels, t, more in (("tiles_rgba", rgba, 16, {"extra": 2}), ("tiles_gray_32", gray[..., None], 32, {}),
+                                  ("invalid_tiles_rgb", rgb, 16, {}), ("invalid_tiles_gray", gray[..., None], 16, {})):
+        tags = tiff_tags(37, 23, 8, pixels.shape[2], 2 if pixels.shape[2] > 1 else 1, 1, tile_width=t,
+                         tile_length=t, **more)
+        del tags[278]
+        files[f"tiff_{name}_37x23.tif"] = tiff(tags, _tiles(pixels, t, t), tiled=True)
+    tags = tiff_tags(37, 23, 8, 3, 2, 1, tile_width=32, tile_length=32, planar=2)
     del tags[278]
-    files["tiff_refused_rgba_tiles_37x23.tif"] = tiff(tags, tiles, tiled=True)
+    files["tiff_tiles_planar_rgb_37x23.tif"] = tiff(tags, _tiles(rgb, 32, 32, True), tiled=True)
+    tags = tiff_tags(37, 23, 8, 4, 2, 1, tile_width=16, tile_length=16, extra=2)
+    del tags[278]
+    tiles = _tiles(rgba, 16, 16)
+    files["tiff_tiles_rgba_short_37x23.tif"] = tiff(tags, tiles, tiled=True,
+                                                    counts=[len(t) - 24 * (k == 2) for k, t in enumerate(tiles)])
+    return files
+
+
+# ---------------------------------------------------------------------------- SGILog
+SGILOG_MINRUN = 4  # tif_luv.c MINRUN
+
+
+def sgilog_planes(values: np.ndarray, word: int) -> bytes:
+    """tif_luv.c LogL16Encode (word 2) or LogLuvEncode32 (word 4) of one row of words:
+    each byte plane, the highest first, as runs of at least MINRUN equal bytes (128 + n -
+    2, the byte; at most 129) and the bytes between (their count, then them; at most 127),
+    a short run of 2-3 before a long one written as a run."""
+    tp = [int(v) for v in values]
+    n, op = len(tp), bytearray()
+    for shft in range(8 * (word - 1), -1, -8):
+        mask = 0xFF << shft
+        i = 0
+        while i < n:
+            beg, rc = i, 0
+            while beg < n:  # the next run of MINRUN or more
+                b, rc = tp[beg] & mask, 1
+                while rc < 127 + 2 and beg + rc < n and (tp[beg + rc] & mask) == b:
+                    rc += 1
+                if rc >= SGILOG_MINRUN:
+                    break
+                beg += rc
+            if 1 < beg - i < SGILOG_MINRUN:  # a short run before it
+                b, j = tp[i] & mask, i + 1
+                while (tp[j] & mask) == b:
+                    j += 1
+                    if j == beg:
+                        op += bytes([128 - 2 + j - i, b >> shft])
+                        i = beg
+                        break
+            while i < beg:  # the bytes before it
+                j = min(beg - i, 127)
+                op.append(j)
+                op += bytes((tp[i + k] >> shft) & 0xFF for k in range(j))
+                i += j
+            if rc >= SGILOG_MINRUN:
+                op += bytes([128 - 2 + rc, (tp[beg] >> shft) & 0xFF])
+                i = beg + rc
+    return bytes(op)
+
+
+def logl16(y: np.ndarray) -> np.ndarray:
+    """tif_luv.c LogL16fromY (SGILOGENCODE_NODITHER): Y -> 16-bit LogL, negative Y with
+    the sign bit, |Y| below 2^-64 (and 0) as 0."""
+    a = np.abs(y)
+    le = np.where(a >= 1.8371976e19, 0x7FFF, np.where(a <= -1.8371976e19, 0x8000,
+                  np.where(a > 5.4136769e-20, (256 * (np.log2(np.maximum(a, 1e-30)) + 64)).astype(np.int64), 0)))
+    return np.where(y < 0, 0x8000 | le, le).astype(np.int64) & 0xFFFF
+
+
+def logluv32(xyz: np.ndarray) -> np.ndarray:
+    """(h, w, 3) XYZ -> LogLuv32 words: LogL16 of Y, then u' and v' scaled by UVSCALE
+    (410) to bytes (tif_luv.c LogLuv32fromXYZ without dithering)."""
+    x, y, z = xyz[..., 0], xyz[..., 1], xyz[..., 2]
+    s = x + 15 * y + 3 * z
+    u = np.where(s > 0, 4 * x / np.where(s > 0, s, 1), 4 / 19)
+    v = np.where(s > 0, 9 * y / np.where(s > 0, s, 1), 9 / 19)
+    ub = np.clip((410 * u).astype(np.int64), 0, 255)
+    vb = np.clip((410 * v).astype(np.int64), 0, 255)
+    return (logl16(y) << 16) | (ub << 8) | vb
+
+
+def sgilog_fixtures(cv2) -> dict:
+    """SGILog TIFFs (compression 34676 on LogL and LogLuv, 34677 on LogLuv) from the
+    encoders here, as cv2 reads them through libtiff's 8-bit conversions: strips of 8 rows
+    and 16 x 16 tiles cut at the edges, every L sign and zero, out-of-gamut colour indices,
+    runs at the coder's thresholds, a cut strip, 8-bit tags, orientation 3; and those cv2
+    returns None for."""
+    rng = np.random.default_rng(2200)
+    bgr = draw(23, 37, 2201, cv2).astype(np.float64) / 255
+    rgb = bgr[..., ::-1] ** 2.2
+    m = np.array([[0.4124, 0.3576, 0.1805], [0.2126, 0.7152, 0.0722], [0.0193, 0.1192, 0.9505]])
+    xyz = rgb @ m.T * rng.uniform(0.5, 3.0)
+    lum = logl16(xyz[..., 1])
+    lum[0, :4] = [0, 0x8000, 0x8000 | 0x4123, 0x7FFF]  # L zero, minus zero, negative, the largest
+    lum[1, :3] = [1, 0x3FFF, 0x4000 + 64 * 256]
+    luv = (lum << 16) | (logluv32(xyz) & 0xFFFF)
+    luv[2, :4] = (luv[2, :4] & ~0xFFFF) | np.array([0x0000, 0xFFFF, 0x00FF, 0xFF00])  # u', v' off the gamut
+    le10 = np.clip(((np.log2(np.maximum(xyz[..., 1], 1e-9)) + 12) * 64).astype(np.int64), 0, 1023)
+    uv = rng.integers(0, 16384, (23, 37))  # colour indices, 16,289 and past it out of gamut
+    uv[3, :5] = [0, 16288, 16289, 16383, 8000]
+    luv24 = (le10 << 14) | uv
+    luv24[4, :2] = [0, 1 << 14]
+    files = {}
+
+    def rows(words, word):
+        return [b"".join(sgilog_planes(r, word) for r in words[y:y + 8]) for y in range(0, words.shape[0], 8)]
+
+    def raw24(words):
+        return [b"".join(int(v).to_bytes(3, "big") for v in words[y:y + 8].reshape(-1))
+                for y in range(0, words.shape[0], 8)]
+
+    def tiles(words, encode):
+        pad = np.zeros((32, 48), np.int64)
+        pad[:23, :37] = words
+        return [encode(pad[y:y + 16, x:x + 16]) for y in range(0, 23, 16) for x in range(0, 37, 16)]
+
+    logl = tiff_tags(37, 23, 16, 1, 32844, 34676, rows=8)
+    logluv = tiff_tags(37, 23, 16, 3, 32845, 34676, rows=8)
+    files["tiff_sgilog_logl_37x23.tif"] = tiff(logl, rows(lum, 2))
+    files["tiff_sgilog_logluv_37x23.tif"] = tiff(logluv, rows(luv, 4))
+    files["tiff_sgilog24_logluv_37x23.tif"] = tiff(tiff_tags(37, 23, 16, 3, 32845, 34677, rows=8), raw24(luv24))
+    for name, tags, words, word in (("logl", logl, lum, 2), ("logluv", logluv, luv, 4)):
+        t = {**tags, 322: (3, [16]), 323: (3, [16])}
+        del t[278]
+        files[f"tiff_sgilog_{name}_tiles_37x23.tif"] = tiff(
+            t, tiles(words, lambda p: b"".join(sgilog_planes(r, word) for r in p)), tiled=True)
+    t = {**tiff_tags(37, 23, 16, 3, 32845, 34677), 322: (3, [16]), 323: (3, [16])}
+    del t[278]
+    files["tiff_sgilog24_logluv_tiles_37x23.tif"] = tiff(
+        t, tiles(luv24, lambda p: b"".join(int(v).to_bytes(3, "big") for v in p.reshape(-1))), tiled=True)
+    cut = rows(luv, 4)
+    cut[1] = cut[1][:len(cut[1]) // 2]
+    files["tiff_sgilog_logluv_cut_37x23.tif"] = tiff(logluv, cut)
+    cut24 = raw24(luv24)
+    cut24[2] = cut24[2][:3 * 37 * 3 + 5]
+    files["tiff_sgilog24_logluv_cut_37x23.tif"] = tiff(tiff_tags(37, 23, 16, 3, 32845, 34677, rows=8), cut24)
+    files["tiff_sgilog_logl_8bit_37x23.tif"] = tiff(tiff_tags(37, 23, 8, 1, 32844, 34676, rows=8), rows(lum, 2))
+    files["tiff_sgilog_logluv_orientation3_37x23.tif"] = tiff({**logluv, 274: (3, [3])}, rows(luv, 4))
+    # runs at the thresholds: 1-5 equal bytes, 127-130, literals of 127 and more
+    row = []
+    for k, n in enumerate((1, 2, 3, 4, 5, 127, 128, 129, 130, 1, 3, 2, 4)):
+        row += [0x3F00 + 7 * k] * n
+    row += (0x3E00 + np.arange(200) * 37 % 251).tolist()
+    runs = np.array([row, row[::-1], [0x4000] * len(row), row[1:] + row[:1]], np.int64)
+    files[f"tiff_sgilog_logl_runs_{runs.shape[1]}x4.tif"] = tiff(
+        tiff_tags(runs.shape[1], 4, 16, 1, 32844, 34676), [b"".join(sgilog_planes(r, 2) for r in runs)])
+    files["tiff_invalid_sgilog24_logl_37x23.tif"] = tiff(tiff_tags(37, 23, 16, 1, 32844, 34677, rows=8), raw24(lum))
+    files["tiff_invalid_sgilog_planar_37x23.tif"] = tiff({**logluv, 284: (3, [2])}, rows(luv, 4))
+    files["tiff_invalid_sgilog_logl_2bit_37x23.tif"] = tiff(tiff_tags(37, 23, 2, 1, 32844, 34676, rows=8),
+                                                            rows(lum, 2))
     return files
 
 
@@ -1326,13 +1505,13 @@ LIBTIFF_CODECS = {1: "None", 2: "CCITT RLE", 3: "CCITT Fax3", 4: "CCITT Fax4", 5
                   8: "AdobeDeflate", 32766: "NeXT", 32771: "CCITT RLEW", 32773: "PackBits", 32809: "ThunderScan",
                   32909: "PixarLog", 32946: "Deflate", 34661: "JBIG", 34676: "SGILog", 34677: "SGILog24",
                   34887: "LERC", 34925: "LZMA", 50000: "ZSTD", 50001: "WEBP"}
-PORT_CODECS = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32809, 32946)  # the port's data/codec.py decodes these
+PORT_CODECS = (1, 2, 3, 4, 5, 7, 8, 32771, 32773, 32809, 32946, 34676, 34677)  # the port's data/codec.py decodes these
 
 
 def compression_bases() -> dict:
     """name -> a little-endian TIFF (seeded numpy samples, uncompressed) whose compression
     code the probe sets: 1-bit MinIsWhite, 8-bit gray, 8-bit and 4-bit palette, 8- and
-    16-bit RGB, 16-bit RGBA (unassociated), 16-bit LogLuv, in strips of 8 rows; 8-bit RGB
+    16-bit RGB, 16-bit RGBA (unassociated), 16-bit LogLuv and LogL, in strips of 8 rows; 8-bit RGB
     and gray in 16 x 16 tiles cut at the right and bottom edges."""
     rng = np.random.default_rng(1800)
     w, h = 37, 23
@@ -1362,6 +1541,7 @@ def compression_bases() -> dict:
     bases["rgb_16bit"] = strips(tiff_tags(w, h, 16, 3, 2), wide[..., :3])
     bases["rgba_16bit"] = strips(tiff_tags(w, h, 16, 4, 2, extra=2), wide)
     bases["logluv_16bit"] = strips(tiff_tags(w, h, 16, 3, 32845), wide[..., :3])
+    bases["logl_16bit"] = strips(tiff_tags(w, h, 16, 1, 32844), wide[..., 3])
     bases["rgb_8bit_tiles"] = tiles(tiff_tags(w, h, 8, 3, 2), rgb)
     bases["gray_8bit_tiles"] = tiles(tiff_tags(w, h, 8, 1, 1), gray)
     return bases
@@ -1914,6 +2094,7 @@ def fixture_set(cv2) -> dict:
     files.update(jpeg_tiff_fixtures(cv2))
     files.update(colour_tiff_fixtures(cv2))
     files.update(fax_fixtures(cv2))
+    files.update(sgilog_fixtures(cv2))
     return files
 
 
@@ -1923,6 +2104,26 @@ def invalid_record(files: dict, cv2) -> dict:
         if cv2.imdecode(np.frombuffer(files[name], np.uint8), cv2.IMREAD_COLOR) is not None:
             raise AssertionError(f"cv2 decodes {name}; it is listed as one cv2 returns None for")
     return dict(INVALID)
+
+
+def file_reads(files: dict, cv2) -> dict:
+    """FILE_READS' fixtures as cv2.imread reads each from a file: its RGB's shape and
+    SHA-256, or null where imread returns None; each checked to differ from imdecode."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in FILE_READS:
+            path = os.path.join(tmp, name)
+            with open(path, "wb") as f:
+                f.write(files[name])
+            bgr = cv2.imread(path, cv2.IMREAD_COLOR)
+            mem = cv2.imdecode(np.frombuffer(files[name], np.uint8), cv2.IMREAD_COLOR)
+            if (bgr is None) == (mem is None) and (bgr is None or np.array_equal(bgr, mem)):
+                raise AssertionError(f"cv2.imread reads {name} as cv2.imdecode does")
+            rgb = None if bgr is None else np.ascontiguousarray(bgr[..., ::-1])
+            out[name] = None if rgb is None else {"shape": list(rgb.shape), "rgb_sha256": sha(rgb)}
+    return out
 
 
 def digests(files: dict, cv2) -> dict:
@@ -1970,7 +2171,8 @@ def main(argv=None) -> None:
         with open(os.path.join(args.out, name), "wb") as f:
             f.write(data)
     record = {"cv2": cv2.__version__, "libjpeg_turbo": libjpeg_turbo_version(cv2),
-              "canvas": list(CANVAS), "images": digests(files, cv2), "invalid": invalid_record(files, cv2)}
+              "canvas": list(CANVAS), "images": digests(files, cv2), "invalid": invalid_record(files, cv2),
+              "file_reads": file_reads(files, cv2)}
     with open(os.path.join(args.out, "digests.json"), "w") as f:
         json.dump(record, f, indent=1, sort_keys=True)
     if not args.skip_compressions:

@@ -1,7 +1,7 @@
 """The image kernels (csrc/jpeg_decode.cu, csrc/jpeg_progressive.cu, csrc/jpeg_smooth.cu,
 csrc/resize.cu, csrc/png_unfilter.cu, csrc/raw_image.cu, csrc/gif_lzw.cu,
-csrc/tiff_assemble.cu, csrc/ccitt_decode.cu) on the card, against their plain versions and
-cv2's recorded digests.
+csrc/tiff_assemble.cu, csrc/ccitt_decode.cu, csrc/sgilog_decode.cu) on the card, against
+their plain versions and cv2's recorded digests.
 
 These tests need an NVIDIA GPU and skip elsewhere. The file imports no JAX and no cv2,
 so the machine with the card runs it as
@@ -19,7 +19,7 @@ import pytest
 import torch
 
 from ssd_object_detection_tpu_torch.data import codec
-from ssd_object_detection_tpu_torch.ops import cuda_image, jpeg_sync_model
+from ssd_object_detection_tpu_torch.ops import cuda_image, fax_schedule_model, jpeg_sync_model, plain_image
 from ssd_object_detection_tpu_torch.tools.make_image_fixtures import FIXTURES, REFUSED, sha
 
 pytestmark = pytest.mark.cuda
@@ -354,20 +354,22 @@ def _jpeg_chunk_pixels(tif, device):
 
 @pytest.mark.parametrize("name", TIFFS)
 def test_tiff_kernels_equal_plain(cuda_device, name):
-    """K9 (its TIFF flavour, where the TIFF has LZW chunks), K10 (where a chunk has a
-    predictor or a byte swap) and K8 on each TIFF fixture (a JPEG-in-TIFF's chunks decoded
-    first by the JPEG kernels): one launch each, equal to the plain versions."""
+    """K9 (its TIFF flavour, where the TIFF has LZW chunks), K11 (CCITT or ThunderScan
+    chunks), K12 (SGILog chunks), K10 (where a chunk has a predictor or a byte swap) and K8
+    on each TIFF fixture (a JPEG-in-TIFF's chunks decoded first by the JPEG kernels): one
+    launch each, equal to the plain versions."""
     tif = codec.parse_tiff(_bytes(name))
-    lzw = any(c.decoded is None and c.jpeg is None and not c.missing and c.fax < 0 for c in tif.chunks)
+    lzw = any(c.decoded is None and c.jpeg is None and not c.missing and c.fax < 0 and not c.sgi for c in tif.chunks)
     fax = any(c.fax >= 0 for c in tif.chunks)
+    sgi = any(c.sgi > 0 for c in tif.chunks)
     k10 = codec.raw_batch([], [tif], []).works > 0
     pixels = _jpeg_chunk_pixels(tif, cuda_device)
-    before = (cuda_image.lzw_decode.launches, cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches,
-              cuda_image.ccitt_decode.launches)
+    kernels = (cuda_image.lzw_decode, cuda_image.tiff_assemble, cuda_image.raw_expand, cuda_image.ccitt_decode,
+               cuda_image.sgilog_decode)
+    before = [k.launches for k in kernels]
     got = cuda_image.decode_raw_batch([], [tif], [], cuda_device, pixels)[0]
-    after = (cuda_image.lzw_decode.launches, cuda_image.tiff_assemble.launches, cuda_image.raw_expand.launches,
-             cuda_image.ccitt_decode.launches)
-    assert after == (before[0] + lzw, before[1] + k10, before[2] + 1, before[3] + fax)
+    after = [k.launches for k in kernels]
+    assert after == [before[0] + lzw, before[1] + k10, before[2] + 1, before[3] + fax, before[4] + sgi]
     cpu = torch.device("cpu")
     assert torch.equal(got.cpu(), cuda_image.decode_raw_batch([], [tif], [], cpu, _jpeg_chunk_pixels(tif, cpu))[0])
 
@@ -552,3 +554,78 @@ def test_block_smooth_on_32_images_in_one_call(cuda_device, scan, launches):
     got = cuda_image.block_smooth(gpu, coef.to(cuda_device), stops.to(cuda_device))
     assert cuda_image.block_smooth.launches == before + launches == before + 1 + int(batch.smooth_dc > 0)
     assert torch.equal(got.cpu(), cuda_image.block_smooth(batch, coef.clone(), stops))
+
+
+def _k11(tiffs, device):
+    """K11 over one call of `tiffs` on the card and its plain version: (the kernel's
+    output region, the plain one's, the kernel's records, the batch)."""
+    batch = codec.raw_batch([], tiffs, [])
+    got, want = cuda_image.upload(batch, device), cuda_image.upload(batch, torch.device("cpu"))
+    records = torch.zeros((batch.faxes, codec.FAX_RECORD_INTS), dtype=torch.int32, device=device)
+    cuda_image.ccitt_decode(got, batch, records)
+    cuda_image.ccitt_decode(want, batch)
+    return got.cpu()[batch.fax_out:batch.total], want[batch.fax_out:batch.total], records.cpu(), batch
+
+
+def test_ccitt_kernel_repairs_where_a_guess_fails(cuda_device):
+    """K11's guesses and repairs on the card, beside ops/fax_schedule_model's: the Group 3
+    strip without EOLs before strips with them and the Group 4 strip whose first row reads
+    past the white reference line are repaired from their second chunk, the 8-strip page in
+    the same launch needs none, and every chunk's flags are the model's; all bit-equal to
+    the plain version."""
+    names = ["tiff_ccitt_noeol_then_eol_37x23.tif", "tiff_ccitt_g4_page_1728x2200.tif",
+             "tiff_ccitt_g4_past_white_37x23.tif"]
+    got, want, records, batch = _k11([codec.parse_tiff(_bytes(n)) for n in names], cuda_device)
+    assert torch.equal(got, want)
+    buf = batch.host.copy()
+    buf.resize(batch.total, refcheck=False)
+    report = fax_schedule_model.ccitt_schedule(buf, batch.fax_streams, buf)
+    for first, r in report.items():
+        assert records[first, codec.FR_REPAIR_FROM] == (0 if r["repair_from"] is None else r["repair_from"] + 1)
+        flags = records[first:first + r["chunks"], codec.FR_FLAGS].tolist()
+        assert [j for j, f in enumerate(flags) if f & codec.FAX_FOREIGN] == r["foreign"]
+        assert [j for j, f in enumerate(flags) if f & codec.FAX_NOEOL] == r["noeol"]
+    assert [records[f, codec.FR_REPAIR_FROM].item() for f in report] == [2, 0, 2]
+
+
+def test_ccitt_kernel_on_the_one_strip_page_and_a_wide_image(cuda_device):
+    """K11 on the 1728x2200 page in one strip (its stage streamed through both halves) and
+    on images too wide for shared memory (12,000 pixels: the image's first CTA walks its
+    chunks in turn in global scratch), Group 4 and Group 3 without then with EOLs,
+    bit-equal to the plain version."""
+    from ssd_object_detection_tpu_torch.tools import make_image_fixtures as fx
+
+    got, want, _, _ = _k11([codec.parse_tiff(_bytes("tiff_ccitt_g4_page_one_strip_1728x2200.tif"))], cuda_device)
+    assert torch.equal(got, want)
+    rng = np.random.default_rng(2600)
+    bits = rng.random((48, 12000)) < np.linspace(0.02, 0.4, 12000)
+    for mode in ("g4", "noeol"):
+        tags = fx.tiff_tags(12000, 48, 1, 1, 0, 4 if mode == "g4" else 3, rows=16)
+        strips = [fx.fax_rows(bits[y:y + 16], mode if mode == "g4" or y == 0 else "g3") for y in range(0, 48, 16)]
+        got, want, _, batch = _k11([codec.parse_tiff(fx.tiff(tags, strips))], cuda_device)
+        assert torch.equal(got, want), mode
+        assert (plain_image.fax_tables().size + batch.fax_runs_max) * 4 > 227 * 1024  # past a CTA's shared memory
+
+
+SGILOGS = [n for n in TIFFS if n.startswith(("tiff_sgilog_", "tiff_sgilog24_"))]
+
+
+def test_sgilog_kernel_equals_plain_in_one_launch(cuda_device):
+    """K12 on every SGILog fixture's run-length chunks in one launch (LogL and LogLuv,
+    strips and tiles, a cut strip, runs at the coder's thresholds), bit-equal to its plain
+    version, then K8's SGILog formats on them (and on SGILog24's raw pixels) bit-equal to
+    theirs and to cv2's digests."""
+    assert len(SGILOGS) >= 10
+    tiffs = [codec.parse_tiff(_bytes(n)) for n in SGILOGS]
+    batch = codec.raw_batch([], tiffs, [])
+    buf, want = cuda_image.upload(batch, cuda_device), cuda_image.upload(batch, torch.device("cpu"))
+    before = cuda_image.sgilog_decode.launches
+    cuda_image.sgilog_decode(buf, batch)
+    cuda_image.sgilog_decode(want, batch)
+    assert cuda_image.sgilog_decode.launches == before + 1 and batch.sgis > len(SGILOGS)
+    assert torch.equal(buf.cpu(), want)
+    out, want_out = cuda_image.raw_expand(buf, batch), cuda_image.raw_expand(want, batch)
+    for name, (at, h, w) in zip(SGILOGS, batch.out):
+        img = out[at:at + h * w * 3].cpu()
+        assert torch.equal(img, want_out[at:at + h * w * 3]), name
+        assert sha(img.view(h, w, 3).numpy()) == DIGESTS[name]["rgb_sha256"], name

@@ -1,9 +1,10 @@
-"""The launch plans of K11 (csrc/ccitt_decode.cu) and K7 (csrc/jpeg_smooth.cu): every
-integer the kernels read, named and ordered as in their structures, against the host's
-layout (data/codec.py: raw_batch's K11 streams, jpeg_batch's smoothed components); the
-CCITT state tables against the T.4 code words; K7's tile-to-component map and its
-warp's last good iMCU row (the kernel's way, replayed in ops/plain_image.py) against the
-plain version on a batch of mixed shapes, subsamplings and cuts. No GPU needed."""
+"""The launch plans of K11 (csrc/ccitt_decode.cu), K12 (csrc/sgilog_decode.cu) and K7
+(csrc/jpeg_smooth.cu): every integer the kernels read, named and ordered as in their
+structures, against the host's layout (data/codec.py: raw_batch's K11 and K12 streams,
+K11's records, jpeg_batch's smoothed components); the CCITT state tables against the
+T.4 code words; K7's tile-to-component map and its warp's last good iMCU row (the
+kernel's way, replayed in ops/plain_image.py) against the plain version on a batch of
+mixed shapes, subsamplings and cuts. No GPU needed."""
 
 import os
 import re
@@ -53,6 +54,16 @@ def test_kernel_structures_are_the_hosts():
     assert stream.pop("kFaxInts") == codec.FAX_INTS == len(stream)
     assert {_snake(k): v for k, v in stream.items()} == {n[2:]: getattr(codec, n) for n in dir(codec)
                                                          if re.fullmatch(r"F_[A-Z_]+", n)}
+    record = _enum("ccitt_decode.cu", "Record")
+    assert record.pop("kRecordInts") == codec.FAX_RECORD_INTS == len(record)
+    assert {_snake(k): v for k, v in record.items()} == {n[3:]: getattr(codec, n) for n in dir(codec)
+                                                         if re.fullmatch(r"FR_[A-Z_0-9]+", n)}
+    text = open(os.path.join(CSRC, "ccitt_decode.cu")).read()
+    assert "constexpr int kForeign = %d, kNoEol = %d;" % (codec.FAX_FOREIGN, codec.FAX_NOEOL) in text
+    sgi = _enum("sgilog_decode.cu", "Stream")
+    assert sgi.pop("kSgiInts") == codec.SGI_INTS == len(sgi)
+    assert {_snake(k): v for k, v in sgi.items()} == {n[2:]: getattr(codec, n) for n in dir(codec)
+                                                      if re.fullmatch(r"G_[A-Z_]+", n)}
     modes = _enum("ccitt_decode.cu", "Mode")
     assert list(modes.values()) == [codec.FAX_RLE, codec.FAX_RLEW, codec.FAX_G3_1D, codec.FAX_G3_2D, codec.FAX_G4,
                                     codec.FAX_THUNDER]
@@ -110,9 +121,10 @@ def test_fax_stream_plan():
     """K11's streams of a mixed decode call (CCITT strips and tiles of several codes,
     ThunderScan, the Group 3 file of a strip without EOLs then strips with them, an
     old-style LZW TIFF, a GIF and a BMP), integer by integer: each chunk's coded bytes in
-    the host bytes, its flavour and geometry, its output after K9's, back to back, the
-    chunk table pointing at it, the run scratch an image's (its chunks' shared), and the
-    chain of an image's chunks."""
+    the host bytes from a 16-byte boundary (the kernel stages them with cp.async), its
+    flavour and geometry, its output after K9's, back to back, the chunk table pointing
+    at it, its own run scratch (codec.fax_area ints, back to back), and its image's first
+    stream and chunks."""
     names = ["tiff_ccitt_g4_strips_37x23.tif", "tiff_ccitt_rle_tiled_37x23.tif", "tiff_thunderscan_37x23.tif",
              "tiff_ccitt_noeol_then_eol_37x23.tif", "tiff_ccitt_rlew_37x23.tif", "tiff_ccitt_g3_2d_37x23.tif",
              "tiff_lzw_old_gray_37x23.tif", "tiff_ccitt_g3fill_37x23.tif"]
@@ -140,16 +152,18 @@ def test_fax_stream_plan():
             assert (s[codec.F_MODE], s[codec.F_ROWS], s[codec.F_WIDTH], s[codec.F_ROW_BYTES]) == (
                 want_mode, c.rows, c.width, c.row_bytes), name
             assert bytes(batch.host[s[codec.F_SRC]:s[codec.F_SRC] + s[codec.F_BYTES]]) == c.raw
+            assert s[codec.F_SRC] % 16 == 0
             assert s[codec.F_OUT] == out == chunks[k, codec.C_SRC] and chunks[k, codec.C_STREAM] == -1
             assert s[codec.F_ODD] == 0  # bytes of a body, not a file's
-            assert s[codec.F_NEXT] == int(c is not t.chunks[-1])
+            assert (s[codec.F_FIRST], s[codec.F_CHUNKS]) == (first, len(t.chunks))
+            assert s[codec.F_RUNS] == runs
             if want_mode != codec.FAX_THUNDER:
-                assert s[codec.F_RUNS] == (runs if j == first else streams[first, codec.F_RUNS])
+                area = codec.fax_area(want_mode, c.width)
+                assert area == codec.fax_span(want_mode, c.width) + 2 * codec.fax_row_ints(c.width)
+                assert area % 4 == 0 and codec.fax_row_ints(c.width) * 4 >= c.row_bytes + 16
+                runs, most = runs + area, max(most, area)
             out += c.size
             j, k = j + 1, k + 1
-        if comp != 5 and modes.get(comp) != codec.FAX_THUNDER:
-            runs += codec.fax_scratch(streams[first, codec.F_MODE], t.chunks[0].width)
-            most = max(most, codec.fax_scratch(streams[first, codec.F_MODE], t.chunks[0].width))
     assert j == batch.faxes and out == batch.total and (runs, most) == (batch.fax_runs, batch.fax_runs_max)
     assert batch.fax_bytes == out - batch.fax_out
     # a file's bytes: a chunk's first byte's parity is its offset's (RLEW's word alignment reads it)
@@ -244,3 +258,57 @@ def test_smooth_plan_over_many_components(tiles):
     plan = plain_image.smooth_plan(smooth, tiles)
     np.testing.assert_array_equal(plan[:, 0], np.arange(tiles))
     assert not plan[:, 1:].any()
+
+
+def test_sgilog_stream_plan():
+    """K12's streams of a mixed decode call (LogL and LogLuv strips and tiles, a cut
+    strip, SGILog24, a CCITT TIFF and a BMP), integer by integer: each SGILog chunk's coded
+    bytes in the host bytes, its word, rows and width, its words after K11's output, back
+    to back, the chunk table pointing at it; SGILog24's chunks decoded on the host (whole
+    rows, zero past them) and K12's output zero before it writes; the call's SGILog tables
+    once, from an even int (they hold doubles)."""
+    names = ["tiff_sgilog_logl_37x23.tif", "tiff_ccitt_g4_strips_37x23.tif", "tiff_sgilog_logluv_tiles_37x23.tif",
+             "tiff_sgilog24_logluv_cut_37x23.tif", "tiff_lab16_37x23.tif", "tiff_sgilog_logluv_cut_37x23.tif"]
+    tiffs = [codec.parse_tiff(_bytes(n)) for n in names]
+    bmp = codec.parse_raw(_bytes("bmp_24_37x23.bmp"), "bmp")
+    batch = codec.raw_batch([], tiffs, [bmp])
+    streams, chunks = batch.sgi_streams, batch.chunks
+    assert batch.sgi_out == batch.fax_out + batch.fax_bytes and batch.total == batch.sgi_out + batch.sgi_bytes
+    j, k, out = 0, 0, batch.sgi_out
+    tables = set()
+    for name, t, row in zip(names, tiffs, batch.image_rows):
+        if t.tables is not None:
+            tables.add(int(row[codec.R_TABLE]))
+        for c in t.chunks:
+            if c.sgi:
+                s = streams[j]
+                assert name.startswith("tiff_sgilog_") and c.sgi == (2 if "logl_" in name else 4)
+                assert (s[codec.G_WORD], s[codec.G_ROWS], s[codec.G_WIDTH]) == (c.sgi, c.rows, c.width)
+                assert bytes(batch.host[s[codec.G_SRC]:s[codec.G_SRC] + s[codec.G_BYTES]]) == c.raw
+                assert s[codec.G_OUT] == out == chunks[k, codec.C_SRC] and c.row_bytes == c.width * c.sgi
+                out += c.size
+                j += 1
+            elif name.startswith("tiff_sgilog24"):
+                whole = min(c.rows, len(c.raw) // c.row_bytes) * c.row_bytes
+                assert c.decoded == c.raw[:whole] + bytes(c.size - whole) and c.row_bytes == 3 * c.width
+            k += 1
+    assert j == batch.sgis and out == batch.total
+    sgi_tables = [int(r[codec.R_TABLE]) for n, r in zip(names, batch.image_rows) if n.startswith("tiff_sgilog")]
+    assert len(set(sgi_tables)) == 1 and sgi_tables[0] % 2 == 0 and len(tables) == 2
+    at = sgi_tables[0]
+    np.testing.assert_array_equal(batch.desc[at:at + codec.SGILOG_TABLE_INTS], codec.sgilog_tables())
+    buf = batch.host.copy()
+    buf.resize(batch.total, refcheck=False)
+    assert not buf[batch.sgi_out:].any()
+
+
+def test_raw_formats_are_the_kernels():
+    """K8's format enum names SGILog's three formats at the host's numbers."""
+    text = open(os.path.join(CSRC, "raw_image.cu")).read()
+    body = re.search(r"enum \{ kPal1([^}]*)\}", text).group(0)
+    names = [x.strip() for x in body[body.index("{") + 1:body.index("}")].split(",")]
+    assert names.index("kTiffLogL") == codec.TIFF_LOGL_FORMAT
+    assert names.index("kTiffLogLuv") == codec.TIFF_LOGLUV_FORMAT
+    assert names.index("kTiffLogLuv24") == codec.TIFF_LOGLUV24_FORMAT
+    assert "constexpr int kY16 = 32768, kY10 = 1024, kUvRows = %d, kUvDivs = %d;" % (
+        len(codec._SGILOG_UV_ROW), codec.SGILOG_UV_NDIVS) in text

@@ -162,7 +162,8 @@ def test_http_round_trip(service):
 
 @pytest.mark.parametrize("name", ["pam_rgb_37x23.pam", "pam_bits_37x23.pam", "pam_16bit_37x23.pam",
                                   "bigtiff_le_8x6.tif", "bigtiff_be_8x6.tif", "tiff_cv2_37x23.tif",
-                                  "tiff_planar_37x23.tif", "tiff_refused_rgba_tiles_37x23.tif",
+                                  "tiff_planar_37x23.tif", "tiff_tiles_rgba_37x23.tif", "tiff_sgilog_logluv_37x23.tif",
+                                  "tiff_sgilog24_logluv_tiles_37x23.tif", "tiff_sgilog_logl_37x23.tif",
                                   "tiff_group4_37x23.tif", "tiff_ccitt_g3_2d_37x23.tif", "tiff_thunderscan_37x23.tif",
                                   "tiff_lzw_old_gray_37x23.tif",
                                   "tiff_jpeg_strips_420_67x45.tif", "tiff_jpeg_pil_ycbcr_37x23.tif",
@@ -173,8 +174,9 @@ def test_http_pam_and_tiff_answered_or_refused(service, name):
     """A PAM, TIFF (CCITT, ThunderScan and old-style LZW among them), JPEG-in-TIFF or
     BigTIFF body is answered with 200 and the detections the service gives the pixels cv2
     decodes from it (the JAX package's decode_image_bytes, which returns detections for
-    it); an uncompressed TIFF of 4-sample tiles, which cv2 reads and the port refuses, gets
-    415 naming it; an LZMA TIFF, which cv2 returns None for (the JAX service answers 400),
+    it), SGILog and uncompressed 4-sample tiles among them; a YCbCr TIFF of 4 x 4 units
+    that are no whole number of scanlines, which cv2 reads and the port refuses, gets 415
+    naming it; an LZMA TIFF, which cv2 returns None for (the JAX service answers 400),
     gets 400."""
     pytest.importorskip("cv2")
     import os

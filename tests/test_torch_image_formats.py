@@ -836,10 +836,20 @@ def _tiff_case(case: str) -> bytes:
     if case == "lab_every_value":  # 8-bit CIELab: every L, and a and b at random
         lab = np.stack([np.arange(23 * 37) % 256, rng.integers(0, 256, 23 * 37), rng.integers(0, 256, 23 * 37)], -1)
         return fx.tiff(fx.tiff_tags(37, 23, 8, 3, 8), [lab.astype(np.uint8).tobytes()])
-    if case == "uncompressed_tiles_refused":
-        t = fx.tiff_tags(32, 16, 8, 4, 2, tile_width=16, tile_length=16)
+    if case.startswith("uncompressed_tiles_"):  # libtiff's raw buffer must hold the tile's bytes exactly
+        spp, counts = {"uncompressed_tiles_1024": (4, None), "uncompressed_tiles_768_invalid": (3, None),
+                       "uncompressed_tiles_short_zeroed": (4, [1024, 1000])}[case]
+        t = fx.tiff_tags(32, 16, 8, spp, 2, tile_width=16, tile_length=16)
         del t[278]
-        return fx.tiff(t, [rng.integers(0, 256, 1024, dtype=np.uint8).tobytes() for _ in range(2)], tiled=True)
+        return fx.tiff(t, [rng.integers(0, 256, 256 * spp, dtype=np.uint8).tobytes() for _ in range(2)], tiled=True,
+                       counts=counts)
+    if case.startswith("sgilog_"):  # what cv2 takes of SGILog's tags
+        photometric, bits, spp = {"sgilog_logl_1bit": (32844, 1, 1), "sgilog_logl_4bit_invalid": (32844, 4, 1),
+                                  "sgilog_logluv_4bit": (32845, 4, 3), "sgilog_logluv_32bit_invalid": (32845, 32, 3),
+                                  "sgilog_logluv_4_samples_invalid": (32845, 16, 4)}[case]
+        words = rng.integers(0, 1 << 16, (23, 37)) if photometric == 32844 else rng.integers(0, 1 << 32, (23, 37))
+        return fx.tiff(fx.tiff_tags(37, 23, bits, spp, photometric, 34676),
+                       [b"".join(fx.sgilog_planes(r, 2 if photometric == 32844 else 4) for r in words)])
     if case == "old_style_lzw":  # LSB-first codes (LZWDecodeCompat): a Clear, then zeros until the data runs out
         return fx.tiff(fx.tiff_tags(37, 23, 8, 3, 2, 5), [b"\0\x01" + bytes(50)])
     if case == "strips_short_count_zeroed":  # an uncompressed strip shorter than its rows: zeros
@@ -859,7 +869,9 @@ TIFF_CASES = ["rgb16_rounded", "gray16_high_byte", "gray16_planes_rounded", "rgb
               "rgba_extra2", "rgba_extra2_16", "gray_alpha_planes_premultiplied", "palette_4bit",
               "palette_16bit_invalid", "gray_4bit_invalid", "cmyk16_invalid", "five_samples_invalid",
               "no_photometric_invalid", "predictor_ignored_uncompressed", "predictor_3_invalid", "ycbcr_default_subsampling",
-              "uncompressed_tiles_refused", "old_style_lzw", "strips_short_count_zeroed",
+              "uncompressed_tiles_1024", "uncompressed_tiles_768_invalid", "uncompressed_tiles_short_zeroed",
+              "sgilog_logl_1bit", "sgilog_logl_4bit_invalid", "sgilog_logluv_4bit", "sgilog_logluv_32bit_invalid",
+              "sgilog_logluv_4_samples_invalid", "old_style_lzw", "strips_short_count_zeroed",
               "strip_offsets_short_invalid", "lzw_tile_cut_at_edges", "ycbcr44_odd_units_refused",
               "ycbcr_luma_green_zero_invalid", "lab_white_y_zero_invalid", "lab_every_value"]
 
@@ -1161,7 +1173,7 @@ def test_tiff_compression_table_as_cv2(base):
     where cv2's libtiff decodes and the port lacks the codec, else cv2's pixels (the zero
     samples' image, palette and MinIsWhite included, or the code's own digest); a file read
     of an uncompressed tiled TIFF, which cv2.imread reads where cv2.imdecode returns None,
-    is refused by codec.check_file_read."""
+    decodes from the file as cv2.imread reads it."""
     entry, data = COMPRESSIONS[base], fx.compression_bases()[base]
     classes = _classes(entry)
     rng = np.random.default_rng(1900 + sorted(COMPRESSIONS).index(base))
@@ -1177,11 +1189,15 @@ def test_tiff_compression_table_as_cv2(base):
         else:
             got = codec.decode_image(tiff, "cpu").numpy()
             assert fx.sha(got) == (entry["zero_sha256"] if cls == "zero" else entry["decoded_sha256"][str(code)]), code
-        if entry["imread_differs"].get(str(code)) == "decodes":
-            with pytest.raises(codec.UnsupportedImage, match="uncompressed tiled"):
-                codec.check_file_read(tiff)
-        else:
-            codec.check_file_read(tiff)
+        codec.check_file_read(tiff)
+        if str(code) in entry["imread_differs"]:  # cv2.imread maps the file: it reads uncompressed tiles otherwise
+            want = _cv2_file(tiff)
+            assert (want is None) == (entry["imread_differs"][str(code)] == "none"), code
+            if want is None:
+                with pytest.raises(ValueError):
+                    codec.decode_image(tiff, "cpu", from_file=True)
+            else:
+                np.testing.assert_array_equal(codec.decode_image(tiff, "cpu", from_file=True).numpy(), want)
 
 
 @pytest.mark.parametrize("base", sorted(COMPRESSIONS))
@@ -1221,15 +1237,19 @@ def test_tiff_compression_table_is_this_cv2s(base):
 def test_tiff_compression_names():
     """The codes cv2 returns None for, reads as zero samples, or reads with a codec the
     port lacks are named as libtiff names them (32908 is PixarFilm; PixarLog is 32909);
-    the CCITT codecs on 1-bit samples and ThunderScan on 4-bit ones decode (K11)."""
+    the CCITT codecs on 1-bit samples and ThunderScan on 4-bit ones decode (K11), and so
+    does SGILog on LogL and LogLuv (K12, K8)."""
     assert codec.tiff_compression_outcome(32908, 8, 2) == ("zero", "PixarFilm")
     assert codec.tiff_compression_outcome(32909, 8, 2) == ("none", "PixarLog")
     assert codec.tiff_compression_outcome(34925, 8, 2) == ("none", "LZMA")
     assert codec.tiff_compression_outcome(4, 1, 0) == ("decode", "CCITT Group 4")
     assert codec.tiff_compression_outcome(4, 8, 1) == ("none", "CCITT Group 4")
     assert codec.tiff_compression_outcome(32809, 4, 3) == ("decode", "ThunderScan")
-    assert codec.tiff_compression_outcome(34676, 16, codec.TIFF_LOGLUV) == ("lacks", "SGILog")
+    assert codec.tiff_compression_outcome(34676, 16, codec.TIFF_LOGLUV) == ("decode", "SGILog")
+    assert codec.tiff_compression_outcome(34677, 16, codec.TIFF_LOGLUV) == ("decode", "SGILog24")
+    assert codec.tiff_compression_outcome(34676, 16, codec.TIFF_LOGL) == ("decode", "SGILog")
     assert codec.tiff_compression_outcome(34677, 16, codec.TIFF_LOGL)[0] == "none"
+    assert codec.tiff_compression_outcome(1, 16, codec.TIFF_LOGLUV)[0] == "none"
     assert codec.tiff_compression_outcome(12345, 8, 2) == ("zero", "compression 12345")
 
 
@@ -1269,21 +1289,274 @@ def test_jpeg_in_tiff_chunks_join_the_jpeg_batch():
 
 
 def test_uncompressed_tiles_are_none_but_for_four_samples():
-    """cv2.imdecode returns None for an uncompressed tiled TIFF but of 4 samples a pixel
-    (those stay refused, their rule not pinned); cv2.imread of the file reads them all,
-    and the feed's check_file_read refuses them naming the reason."""
+    """cv2.imdecode returns None for uncompressed 16 x 16 tiles of 8-bit samples but of 4
+    samples a pixel: the rule is libtiff's, a tile's raw buffer (a multiple of 1,024 bytes)
+    must be the tile's size (codec._tiled_none_reads). cv2.imread of the file reads them
+    all; the port decodes both ways as cv2 does, and the feed's check_file_read passes
+    them."""
     rng = np.random.default_rng(77)
     for spp, photometric in ((1, 1), (3, 2), (4, 2)):
         t = fx.tiff_tags(37, 23, 8, spp, photometric, tile_width=16, tile_length=16, **({"extra": 2} if spp == 4 else {}))
         del t[278]
         data = fx.tiff(t, [rng.integers(0, 256, 256 * spp, dtype=np.uint8).tobytes() for _ in range(6)], tiled=True)
         if spp == 4:
-            assert _cv2(data) is not None
-            with pytest.raises(codec.UnsupportedImage, match="uncompressed tiled"):
-                codec.decode_image(data, "cpu")
+            np.testing.assert_array_equal(codec.decode_image(data, "cpu").numpy(), _cv2(data))
         else:
             assert _cv2(data) is None
-            with pytest.raises(ValueError):
+            with pytest.raises(ValueError, match="1024 bytes for its"):
                 codec.decode_image(data, "cpu")
-        with pytest.raises(codec.UnsupportedImage, match="uncompressed tiled"):
-            codec.check_file_read(data)
+        codec.check_file_read(data)
+        np.testing.assert_array_equal(codec.decode_image(data, "cpu", from_file=True).numpy(), _cv2_file(data))
+
+
+def _cv2_file(data: bytes, suffix: str = ".tif"):
+    """cv2.imread (IMREAD_COLOR) of `data` written to a file, as RGB, or None."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "image" + suffix)
+        with open(path, "wb") as f:
+            f.write(data)
+        img = cv2.imread(path, cv2.IMREAD_COLOR)
+    return None if img is None else img[..., ::-1]
+
+
+FILE_READS = sorted(json.load(open(os.path.join(fx.FIXTURES, "digests.json")))["file_reads"])
+
+
+@pytest.mark.parametrize("name", FILE_READS)
+def test_file_reads_as_cv2_imread(name):
+    """The fixtures cv2.imread reads otherwise than cv2.imdecode (uncompressed tiles of 768
+    and 256 bytes, a tile of 1,000 bytes for its 1,024): decode_image with from_file, and
+    codec.imread of the file, equal the recorded digest of cv2.imread and cv2.imread
+    itself, or raise ValueError where it returns None."""
+    want = json.load(open(os.path.join(fx.FIXTURES, "digests.json")))["file_reads"][name]
+    data = _bytes(name)
+    live = _cv2_file(data)
+    assert (live is None) == (want is None)
+    if want is None:
+        with pytest.raises(ValueError):
+            codec.decode_image(data, "cpu", from_file=True)
+        return
+    assert fx.sha(np.ascontiguousarray(live)) == want["rgb_sha256"]
+    np.testing.assert_array_equal(codec.decode_image(data, "cpu", from_file=True).numpy(), live)
+    np.testing.assert_array_equal(codec.imread(os.path.join(fx.FIXTURES, name), "cpu").numpy(), live)
+
+
+def _random_tiles(rng) -> bytes:
+    """An uncompressed tiled TIFF at random: tile sizes whose bytes are and are not a
+    multiple of 1,024, 1-4 samples of 8 or 16 bits, one plane or separate ones, fill
+    order, byte counts now and then short, long or zero, a tile past the data."""
+    w, h = int(rng.integers(1, 70)), int(rng.integers(1, 50))
+    tw, th = int(rng.choice([16, 32, 48])), int(rng.choice([16, 32]))
+    spp, bits = int(rng.choice([1, 2, 3, 4])), int(rng.choice([8, 8, 16]))
+    planar = 2 if spp > 1 and rng.random() < 0.3 else 1
+    photometric = 1 if spp < 3 else 2
+    more = {"extra": 2} if spp in (2, 4) else {}
+    if rng.random() < 0.15:
+        more["fill_order"] = 2
+    tags = fx.tiff_tags(w, h, bits, spp, photometric, tile_width=tw, tile_length=th, **more)
+    if planar == 2:
+        tags[284] = (3, [2])
+    del tags[278]
+    per = tw * th * (spp if planar == 1 else 1) * bits // 8
+    n = (-(-w // tw)) * (-(-h // th)) * (spp if planar == 2 else 1)
+    tiles = [rng.integers(0, 256, per, dtype=np.uint8).tobytes() for _ in range(n)]
+    counts = [len(t) for t in tiles]
+    for _ in range(int(rng.integers(0, 3))):
+        k = int(rng.integers(n))
+        counts[k] = max(0, counts[k] + int(rng.choice([-24, -1000, 1, 700, -counts[k]])))
+    if rng.random() < 0.1:
+        counts[-1] += 5000  # past the data
+    return fx.tiff(tags, tiles, big_endian=bool(rng.random() < 0.3), tiled=True, counts=counts)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_uncompressed_tiles_as_cv2(seed):
+    """40 seeded random uncompressed tiled TIFFs a seed, from bytes (cv2.imdecode) and from a
+    file (cv2.imread): decoded as cv2 decodes them, or ValueError exactly where cv2
+    returns None; none refused."""
+    rng = np.random.default_rng(2300 + seed)
+    for i in range(40):
+        data = _random_tiles(rng)
+        for from_file, want in ((False, _cv2(data)), (True, _cv2_file(data))):
+            try:
+                got = codec.decode_image(data, "cpu", from_file=from_file).numpy()
+            except ValueError as e:
+                assert want is None and not isinstance(e, codec.UnsupportedImage), (i, from_file)
+                continue
+            assert want is not None, (i, from_file)
+            np.testing.assert_array_equal(got, want, err_msg=str((i, from_file)))
+
+
+def test_uncompressed_tiles_read_the_same_twice_and_in_two_processes():
+    """cv2's read of uncompressed tiles is a function of the file's bytes: the tiles of
+    1,024 bytes (one of them of 1,000: libtiff's buffer, zeroed when it was allocated,
+    reads it as zero) give the same pixels read twice in one process and in another
+    process, from bytes and from files, and the port's decode equals them."""
+    import subprocess
+    import sys
+
+    names = ["tiff_tiles_rgba_37x23.tif", "tiff_tiles_rgba_short_37x23.tif", "tiff_tiles_planar_rgb_37x23.tif",
+             "tiff_invalid_tiles_rgb_37x23.tif"]
+    code = ("import sys, cv2, hashlib, numpy as np\n"
+            "for p in sys.argv[1:]:\n"
+            "    for img in (cv2.imdecode(np.fromfile(p, np.uint8), cv2.IMREAD_COLOR), cv2.imread(p)):\n"
+            "        print('none' if img is None else hashlib.sha256(np.ascontiguousarray(img[..., ::-1])).hexdigest())\n")
+    paths = [os.path.join(fx.FIXTURES, n) for n in names]
+    other = subprocess.run([sys.executable, "-c", code, *paths], capture_output=True, text=True, check=True)
+    lines = other.stdout.split()
+    for k, (name, path) in enumerate(zip(names, paths)):
+        data = _bytes(name)
+        for j, (want, again, from_file) in enumerate(((_cv2(data), _cv2(data), False),
+                                                     (_cv2_file(data), _cv2_file(data), True))):
+            digest = "none" if want is None else fx.sha(np.ascontiguousarray(want))
+            assert digest == lines[2 * k + j] == ("none" if again is None else fx.sha(np.ascontiguousarray(again)))
+            if want is None:
+                with pytest.raises(ValueError):
+                    codec.decode_image(data, "cpu", from_file=from_file)
+            else:
+                np.testing.assert_array_equal(codec.decode_image(data, "cpu", from_file=from_file).numpy(), want)
+
+
+# ---------------------------------------------------------------------------- SGILog
+def _sgilog_scalar(kind: str, p: int):
+    """tif_luv.c's 8-bit conversion of one pixel, a scalar transcription of the C
+    (LogL16toY, LogLuv32toXYZ, LogLuv24toXYZ with uv_decode, XYZtoRGB24, L16toGry)."""
+    import math
+
+    ln2 = math.log(2.0)
+
+    def y16(p16):
+        le = p16 & 0x7FFF
+        if not le:
+            return 0.0
+        y = math.exp(ln2 / 256. * (le + .5) - ln2 * 64.)
+        return -y if p16 & 0x8000 else y
+
+    def byte(v):
+        return 0 if v <= 0. else 255 if v >= 1. else int(256. * math.sqrt(v))
+
+    if kind == "logl":
+        return (byte(y16(p)),) * 3
+    if kind == "logluv":
+        lum = y16((p >> 16) & 0xFFFF)
+        u, v = 1. / 410. * (((p >> 8) & 0xFF) + .5), 1. / 410. * ((p & 0xFF) + .5)
+    else:
+        p10 = (p >> 14) & 0x3FF
+        lum = 0.0 if p10 == 0 else math.exp(ln2 / 64. * (p10 + .5) - ln2 * 12.)
+        c = p & 0x3FFF
+        if c >= 16289:
+            u, v = 0.210526316, 0.473684211
+        else:
+            lower, upper = 0, 163
+            while upper - lower > 1:
+                vi = (lower + upper) >> 1
+                ui = c - codec._SGILOG_UV_ROW[vi][2]
+                if ui > 0:
+                    lower = vi
+                elif ui < 0:
+                    upper = vi
+                else:
+                    lower = vi
+                    break
+            ui = c - codec._SGILOG_UV_ROW[lower][2]
+            sq = float(np.float32(0.0035))
+            u = float(np.float32(codec._SGILOG_UV_ROW[lower][0])) + (ui + .5) * sq
+            v = float(np.float32(0.016940)) + (lower + .5) * sq
+    if lum <= 0.:
+        return (0, 0, 0)
+    s = 1. / (6. * u - 16. * v + 12.)
+    x, y = 9. * u * s, 4. * v * s
+    f32 = lambda t: float(np.float32(t))  # noqa: E731
+    X, Y, Z = f32(x / y * lum), f32(lum), f32((1. - x - y) / y * lum)
+    r = 2.690 * X + -1.276 * Y + -0.414 * Z
+    g = -1.022 * X + 1.978 * Y + 0.044 * Z
+    b = 0.061 * X + -0.224 * Y + 1.163 * Z
+    return byte(r), byte(g), byte(b)
+
+
+def test_sgilog_conversions_are_the_c():
+    """K8's SGILog conversions (ops/plain_image.py::logl_gray and logluv_rgb, through
+    codec.sgilog_tables' exp) equal a scalar transcription of tif_luv.c at every 16-bit
+    LogL (negative L and L zero among them), and at 4,000 seeded LogLuv32 and LogLuv24
+    words (colour bytes off the gamut, indices past uv_row, every L10 edge)."""
+    from ssd_object_detection_tpu_torch.ops import plain_image
+
+    table = codec.sgilog_tables()
+    p16 = np.arange(1 << 16)
+    want = np.array([_sgilog_scalar("logl", int(v))[0] for v in p16])
+    np.testing.assert_array_equal(plain_image.logl_gray(table, p16), want)
+    rng = np.random.default_rng(2400)
+    w32 = rng.integers(0, 1 << 32, 4000, dtype=np.int64)
+    w32[:6] = [0, 0x80000000, 0x7FFF0000, 0x0001FFFF, 0x4000FF00, 0x400000FF]
+    w24 = rng.integers(0, 1 << 24, 4000, dtype=np.int64)
+    w24[:6] = [0, 16288, 16289 | 1 << 14, 0x3FF << 14 | 16383, 1 << 14, 0xFFFFFF]
+    for kind, words in (("logluv", w32), ("logluv24", w24)):
+        got = plain_image.logluv_rgb(table, words, kind == "logluv24")
+        want = np.array([_sgilog_scalar(kind, int(v)) for v in words])
+        np.testing.assert_array_equal(got, want, err_msg=kind)
+
+
+def _random_sgilog(rng) -> bytes:
+    """A LogL or LogLuv TIFF of SGILog or SGILog24 at random: size, strips or tiles, byte
+    order, BigTIFF, orientation, bits and samples tags (now and then ones cv2 refuses),
+    words of every sign and colour, runs of equal bytes, and now and then a chunk cut
+    short or some of its bytes' bits flipped."""
+    w, h = int(rng.integers(1, 60)), int(rng.integers(1, 30))
+    logl = rng.random() < 0.4
+    comp = 34676 if logl or rng.random() < 0.6 else 34677
+    if rng.random() < 0.05:
+        comp = 34677 if logl else 34676
+    word = 2 if logl else (3 if comp == 34677 else 4)
+    spp = 1 if logl else 3
+    if rng.random() < 0.05:
+        spp = int(rng.choice([1, 2, 3, 4]))
+    bits = 16 if rng.random() < 0.85 else int(rng.choice([1, 2, 4, 8, 32]))
+    more = {"orientation": int(rng.integers(1, 9))} if rng.random() < 0.3 else {}
+    tags = fx.tiff_tags(w, h, bits, spp, 32844 if logl else 32845, comp, rows=int(rng.integers(1, h + 3)), **more)
+    tiled = rng.random() < 0.25
+    if tiled:
+        tw, th = int(rng.choice([16, 32])), int(rng.choice([8, 16]))
+        tags.update({322: (3, [tw]), 323: (3, [th])})
+        del tags[278]
+        boxes = [(th, tw)] * (-(-h // th) * -(-w // tw))
+    else:
+        rows = tags[278][1][0]
+        boxes = [(min(rows, h - y), w) for y in range(0, h, rows)]
+    chunks = []
+    for r, c in boxes:
+        base = rng.integers(0, 1 << (8 * word), dtype=np.int64)
+        words = np.where(rng.random((r, c)) < 0.5, base, rng.integers(0, 1 << (8 * word), (r, c), dtype=np.int64))
+        if word == 3:
+            chunks.append(b"".join(int(v).to_bytes(3, "big") for v in words.reshape(-1)))
+        else:
+            chunks.append(b"".join(fx.sgilog_planes(row, word) for row in words))
+    i = int(rng.integers(len(chunks)))
+    r = rng.random()
+    if r < 0.25:
+        chunks[i] = chunks[i][:int(rng.integers(0, len(chunks[i]) + 1))]
+    elif r < 0.5 and chunks[i]:
+        b = bytearray(chunks[i])
+        for _ in range(int(rng.integers(1, 4))):
+            b[int(rng.integers(len(b)))] ^= 1 << int(rng.integers(8))
+        chunks[i] = bytes(b)
+    return fx.tiff(tags, chunks, big_endian=bool(rng.random() < 0.4), big=bool(rng.random() < 0.3), tiled=tiled)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_random_sgilog_tiffs_as_cv2(seed):
+    """60 seeded random SGILog TIFFs a seed (LogL and LogLuv, SGILog and SGILog24, strips
+    and tiles, their chunks now and then cut or their bits flipped): the port decodes each
+    as cv2 does, or raises ValueError exactly where cv2 returns None; none refused."""
+    rng = np.random.default_rng(2200 + seed)
+    for i in range(60):
+        data = _random_sgilog(rng)
+        want = _cv2(data)
+        try:
+            got = codec.decode_image(data, "cpu").numpy()
+        except ValueError as e:
+            assert want is None and not isinstance(e, codec.UnsupportedImage), i
+            continue
+        assert want is not None, i
+        np.testing.assert_array_equal(got, want, err_msg=str(i))

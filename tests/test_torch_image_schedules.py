@@ -11,7 +11,12 @@ runs them, against the plain versions the kernels are held to on the card.
     entries, binary lifting, a scan of the lengths, equal pixel ranges walked backwards)
     equal ops/plain_image.py::lzw_decode on every GIF fixture, indices and status, at the
     kernel's window of 4,096 codes, at one shorter than a segment and at one shorter
-    than a warp.
+    than a warp;
+  - ops/fax_schedule_model.py: K11's schedule (every CCITT chunk from the state libtiff
+    gives a chunk, what its guess relied on, the repair from the first chunk whose guess
+    failed, the fill warps' rows) equals ops/plain_image.py::ccitt_decode on every CCITT
+    and ThunderScan fixture, on 240 seeded random directories and on the cases built so
+    that a guess fails.
 
 Tolerance: none. Inputs: the committed fixtures.
 """
@@ -26,7 +31,7 @@ import pytest
 import torch
 
 from ssd_object_detection_tpu_torch.data import codec
-from ssd_object_detection_tpu_torch.ops import gif_lzw_model, plain_image, png_wavefront_model
+from ssd_object_detection_tpu_torch.ops import fax_schedule_model, gif_lzw_model, plain_image, png_wavefront_model
 from ssd_object_detection_tpu_torch.tools.make_image_fixtures import FIXTURES
 
 RECORD = json.loads((Path(FIXTURES) / "digests.json").read_text())
@@ -235,3 +240,87 @@ def test_a_tile_the_fused_kernel_cannot_hold_is_refused(tile_inputs):
     wide = dataclasses.replace(batch, tiles=torch.from_numpy(jpeg_tile_model.tiles_at(images, (32, 256))))
     with pytest.raises(ValueError, match="the fused kernel holds at most"):
         wide.to(torch.device("cpu"))
+
+
+# ---------------------------------------------------------------------------- K11's schedule
+def _fax_schedule(tiffs):
+    """(plain_image.ccitt_decode's output, the replay's output, its report) on one batch."""
+    batch = codec.raw_batch([], tiffs, [])
+    want = batch.host.copy()
+    want.resize(batch.total, refcheck=False)
+    got = want.copy()
+    plain_image.ccitt_decode(want, batch.fax_streams, want)
+    report = fax_schedule_model.ccitt_schedule(got, batch.fax_streams, got)
+    return want[batch.fax_out:], got[batch.fax_out:], report
+
+
+FAX_FIXTURES = sorted(n for n in list(RECORD["images"]) + list(RECORD["invalid"])
+                      if n.startswith(("tiff_ccitt_", "tiff_thunderscan_")) or n == "tiff_group4_37x23.tif")
+
+
+@pytest.mark.parametrize("name", FAX_FIXTURES)
+def test_fax_schedule_equals_plain_on_every_fixture(name):
+    """Each CCITT and ThunderScan fixture through K11's schedule, bit-equal to the plain
+    decoder; the pages and sound files need no repair."""
+    want, got, report = _fax_schedule([codec.parse_tiff((Path(FIXTURES) / name).read_bytes())])
+    np.testing.assert_array_equal(got, want)
+    if "page" in name or name in ("tiff_ccitt_g4_strips_37x23.tif", "tiff_ccitt_g3_2d_strips_37x23.tif",
+                                  "tiff_ccitt_mh_strips_37x23.tif", "tiff_ccitt_rlew_37x23.tif"):
+        assert all(r["repair_from"] is None for r in report.values()), report
+
+
+def test_fax_schedule_repairs_where_a_guess_fails():
+    """The cases built so that a chunk's guess fails: a Group 3 strip without EOLs before
+    strips with them (it leaves FAXMODE_NOEOL on: the repair starts at the second strip)
+    and a Group 4 strip whose first row walks its reference line past the white line
+    (a run array entry it did not write decides its row: the repair starts there); both
+    in one call with a page that needs none, each still equal to the plain decoder."""
+    names = ["tiff_ccitt_noeol_then_eol_37x23.tif", "tiff_ccitt_g4_page_1728x2200.tif",
+             "tiff_ccitt_g4_past_white_37x23.tif"]
+    want, got, report = _fax_schedule([codec.parse_tiff((Path(FIXTURES) / n).read_bytes()) for n in names])
+    np.testing.assert_array_equal(got, want)
+    reports = list(report.values())
+    assert [r["repair_from"] for r in reports] == [1, None, 1]
+    assert reports[0]["noeol"] == [0] and reports[0]["foreign"] == []
+    assert reports[2]["foreign"] == [1] and reports[2]["noeol"] == []
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fax_schedule_on_random_directories(seed):
+    """The 240 seeded random CCITT, ThunderScan and old-style LZW directories of
+    tests/test_torch_image_formats.py (cut chunks, flipped bits), 60 a seed, through K11's
+    schedule: bit-equal to the plain decoder, and at least one repair among them."""
+    from tests.test_torch_image_formats import _random_fax_tiff
+
+    rng = np.random.default_rng(2100 + seed)
+    tiffs = []
+    for _ in range(60):
+        try:
+            tiffs.append(codec.parse_tiff(_random_fax_tiff(rng)))
+        except ValueError:
+            continue
+    want, got, report = _fax_schedule(tiffs)
+    np.testing.assert_array_equal(got, want)
+    assert any(r["repair_from"] is not None for r in report.values())
+
+
+def test_kernel_fill_equals_fill_runs():
+    """K11's fill (a row of words, stored a 16-byte unit at a time at each phase of the
+    buffer's grid) equals plain_image.fill_runs on seeded rows of runs: odd counts, runs
+    of zero, rows whose runs sum past the width (cut and written back as fill_runs does)
+    and rows that end short of it."""
+    rng = np.random.default_rng(2500)
+    for i in range(300):
+        lastx = int(rng.integers(1, 300))
+        m = int(rng.integers(1, 40))
+        runs = rng.integers(0, 3 * lastx // max(m, 1) + 2, m).tolist() + [0] * 4
+        if i % 7 == 0:
+            runs[0] = 2 ** 32 - 5  # a wrapped run
+        row_bytes = -(-lastx // 8)
+        want_runs, got_runs = list(runs), list(runs)
+        want = np.zeros(row_bytes, np.uint8)
+        plain_image.fill_runs(want, want_runs, 0, m, lastx)
+        got = np.full(row_bytes, 0xA5, np.uint8)  # the kernel stores every byte
+        fax_schedule_model.kernel_fill(got, got_runs, 0, m, lastx, phase=i % 16)
+        np.testing.assert_array_equal(got, want, err_msg=str(i))
+        assert got_runs == want_runs, i

@@ -207,11 +207,17 @@ def test_a_root_holding_a_pam_packs_it(tmp_path, body):
                                      "tiff_jpeg_gray_tiles_67x45.tif", "tiff_jpeg_cut_67x45.tif"],
                                     ["tiff_ycbcr22_lzw_37x23.tif", "tiff_pil_lab_jpeg_37x23.tif",
                                      "tiff_jpeg_pil_cmyk_37x23.tif", "tiff_jpeg_planar_rgb_67x45.tif",
-                                     "tiff_lab16_be_37x23.tif", "tiff_jpeg_pil_rgba_37x23.tif"]])
+                                     "tiff_lab16_be_37x23.tif", "tiff_jpeg_pil_rgba_37x23.tif"],
+                                    ["tiff_sgilog_logl_37x23.tif", "tiff_sgilog_logluv_tiles_37x23.tif",
+                                     "tiff_sgilog24_logluv_37x23.tif", "tiff_sgilog_logluv_cut_37x23.tif"],
+                                    ["tiff_tiles_rgba_37x23.tif", "tiff_invalid_tiles_rgb_37x23.tif",
+                                     "tiff_invalid_tiles_gray_37x23.tif", "tiff_tiles_planar_rgb_37x23.tif"]])
 def test_a_root_holding_tiffs_packs_them(tmp_path, bodies):
-    """TIFF, BigTIFF and JPEG-in-TIFF bodies under .jpg names in a root: the decode feed
-    packs them, the caches byte-equal to the JAX package's (which reads them with
-    cv2.imread). Orientations 5-8 are the next test's."""
+    """TIFF, BigTIFF and JPEG-in-TIFF bodies under .jpg names in a root (SGILog ones, and
+    uncompressed tiles that cv2.imread reads from the file where cv2.imdecode returns None
+    for their bytes, among them): the decode feed packs them, the caches byte-equal to
+    the JAX package's (which reads them with cv2.imread). Orientations 5-8 are the next
+    test's."""
     root = _root(tmp_path / "root", ["progressive_420_83x61.jpg"] + bodies)
     port_dir, jax_dir = str(tmp_path / "port"), str(tmp_path / "jax")
     packed.pack_dataset(coco.open_split(root, "train"), port_dir, image_size=48, max_gt=4, num_workers=2,
@@ -257,13 +263,12 @@ def test_a_root_holding_turned_tiffs_packs_as_cv2_imread(tmp_path, orientation):
                for f in os.listdir(os.path.join(root, "train2017"))) == len(turned)
 
 
-@pytest.mark.parametrize("body", ["tiff_refused_ycbcr44_odd_units_33x17.tif", "tiff_refused_rgba_tiles_37x23.tif",
-                                  "other_mif1_8x6.avif", "pam_rgb_alpha_37x23.pam"])
+@pytest.mark.parametrize("body", ["tiff_refused_ycbcr44_odd_units_33x17.tif", "other_mif1_8x6.avif",
+                                  "pam_rgb_alpha_37x23.pam"])
 def test_a_refused_tiff_avif_or_alpha_pam_in_a_root_raises_naming_the_file(tmp_path, body):
-    """An uncompressed YCbCr TIFF, an uncompressed TIFF of 4-sample tiles, an AVIF whose major brand is
-    `mif1`, or a PAM with alpha under a .jpg name: cv2 reads each (the JAX package packs
-    it), the port refuses it, and the feed raises UnsupportedImage naming the file rather
-    than skipping it."""
+    """An uncompressed YCbCr TIFF, an AVIF whose major brand is `mif1`, or a PAM with
+    alpha under a .jpg name: cv2 reads each (the JAX package packs it), the port refuses
+    it, and the feed raises UnsupportedImage naming the file rather than skipping it."""
     root = _root(tmp_path / "root", ["progressive_420_83x61.jpg", "cmyk_83x61.jpg"])
     victim = os.path.join(root, "train2017", f"{9001:012d}.jpg")
     shutil.copy(os.path.join(FIXTURES, body), victim)
